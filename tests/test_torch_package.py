@@ -1,0 +1,102 @@
+"""Package contract of the port (ray_tpu_torch/): it imports neither JAX
+nor the JAX package, every module imports with both blocked, and entry
+points called without a device need CUDA instead of falling back to the
+CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "ray_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PACKAGE):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        if not rel.startswith("ray_tpu_torch"):
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        mods.append(mod[:-len(".__init__")] if mod.endswith("__init__")
+                    else mod)
+    return mods
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert os.path.join(REPO, "chip_smoke.py") in files
+    assert len(files) > 10
+    bad = [f"{os.path.relpath(p, REPO)}:{line} imports {root}"
+           for p in files for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    mods = _port_modules()
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "import importlib\n"
+            + f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            + "print('imported', len(" + repr(mods) + "))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert f"imported {len(mods)}" in res.stdout
+
+
+def test_entry_points_without_device_need_cuda(monkeypatch):
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.models import convert, decoding, transformer
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = transformer.TransformerConfig(vocab_size=11, d_model=16,
+                                        n_layers=1, n_heads=2)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: transformer.init_params(cfg),
+        lambda: decoding.init_paged_caches(cfg, 2, 4, 4, 16),
+        lambda: decoding.init_caches(cfg, 2, 16),
+        lambda: LLMDeployment(dict(vocab_size=11, d_model=16, n_layers=1,
+                                   n_heads=2)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    params = transformer.init_params(cfg, device="cpu")
+    assert params["tok_embed"].device.type == "cpu"
+    tree = {k: (v.numpy() if isinstance(v, torch.Tensor)
+                else {kk: vv.numpy() for kk, vv in v.items()})
+            for k, v in params.items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax(tree, cfg)
+    back = convert.params_from_jax(tree, cfg, device="cpu")
+    assert transformer.num_params(back) == transformer.num_params(params)
+    tree["layers"]["wq"] = np.zeros((1, 16, 2, 4), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        convert.params_from_jax(tree, cfg, device="cpu")
