@@ -18,12 +18,28 @@ script exits non-zero without a result line:
                prefix-cache re-send; every request finishes; the kernel's
                launch count covers every decode step of every layer;
   4. e2e     — the same widths at 2 layers in f32: a kernel engine and a
-               plain-attention engine give the same greedy tokens.
+               plain-attention engine give the same greedy tokens;
+  5. flash   — the flash-attention kernels B1 (forward), B2 (dk/dv) and
+               B3 (dq) against their plain versions at the training
+               shapes (llama-1b: B 4, Hq 32, Hkv 8, S 2048, D 64, causal,
+               bf16) and in f32, D 128, groups 1 and 8, non-causal and
+               cross-length causal cases, some with a nonzero dlse
+               (tolerances at F32_TOL and BF16_TOL; each bf16 case also
+               shows that its limits reject a result with one tile pair
+               left out); kernel / plain / SDPA times;
+  6. train   — CompiledTrainStep on llama-1b at full width (16 layers,
+               bf16, batch 4 x 2048, remat "names", AdamW), random weights
+               from seed 0 and one fixed batch: 2 warm-up and 6 timed
+               steps; finite, falling loss; each flash kernel launched
+               exactly once per layer per step; a profile of one step;
+  7. train_e2e — the same widths at 2 layers in f32: the kernel and the
+               plain-attention trainers agree step for step and in each
+               parameter's change.
 
-Then one JSON line `{"kernels": [...]}` (per kernel: launches on the
-serving run, max error, times, the card's bound), the card's name and
-power limit as nvidia-smi reports them, and last
-`{"ok": true, "device": {...}}`.
+Then one JSON line `{"kernels": [...]}` (per kernel: launches on its main
+path — the serving run for B4, the training run for B1-B3 — max error,
+times, the card's bound), the card's name and power limit as nvidia-smi
+reports them, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -41,10 +57,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and dense
-# FLOP/s by input type (tensor cores for bf16, none for f32).
+# H100 SXM HBM3 bytes/s (NVIDIA data sheet); the dense bf16 FLOP/s come
+# from train/telemetry.py.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 MAIN = dict(B=8, H=32, Hkv=8, D=64, bs=16, W=32)   # llama-1b serving
 MAIN_CTX = [0, 1, 17, 512, 100, 255, 333, 64]
@@ -69,6 +84,15 @@ def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10) -> float:
         if i >= warmup:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops, nbytes):
+    """The least time (ms) for bf16 work, and what bounds it."""
+    from ray_tpu_torch.train import telemetry
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / telemetry.peak_flops_for() * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def kernel_inputs(torch, dtype, B, H, Hkv, D, bs, W, ctx, seed):
@@ -146,14 +170,244 @@ def phase_kernel(torch, pa):
                    + 2 * B * H * D * esize            # q in, out
                    + blocks_read * 4 + B * 4)         # table, lens
     flops = 4 * ctx_sum * H * D
-    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bound_ms, bound_by = bound(flops, bytes_moved)
     timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(t_bytes, t_ops),
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes": bytes_moved, "flops": flops,
               "max_abs_err": main_err}
     return checks, timing
+
+
+# Flash-attention cases (B1, B2+B3 against their plain versions):
+# name, dtype, B, Hq, Hkv, Sq, Sk, D, causal, nonzero dlse.
+FLASH_MAIN = ("llama-1b", "bfloat16", 4, 32, 8, 2048, 2048, 64, True, False)
+FLASH_CASES = [
+    FLASH_MAIN,
+    ("llama-1b-f32", "float32", 2, 32, 8, 512, 512, 64, True, True),
+    ("d128", "bfloat16", 2, 16, 4, 1024, 1024, 128, True, True),
+    ("d128-f32", "float32", 1, 8, 2, 256, 256, 128, True, False),
+    ("group1", "bfloat16", 2, 8, 8, 512, 512, 64, True, False),
+    ("group8", "bfloat16", 2, 16, 2, 512, 512, 128, True, True),
+    ("noncausal", "bfloat16", 2, 8, 2, 512, 512, 64, False, True),
+    ("noncausal-f32", "float32", 1, 4, 4, 256, 384, 64, False, False),
+    ("cross", "float32", 2, 8, 2, 256, 1024, 64, True, True),
+    ("cross-bf16", "bfloat16", 2, 8, 2, 256, 1024, 128, True, False),
+]
+# f32: summation order only; o within 1e-5 and the gradients within
+# 1e-4 (atol = rtol).  bf16: o and each gradient by `tile_rel_err`, the
+# largest relative error over 64-row tiles of each head (the plain
+# version runs in f32 from the same bf16 inputs, so the error is the
+# kernel's bf16 rounding of p, ds and the outputs, plus order).  A tile
+# that left out one of its n partner tiles is off by about sqrt(1/n),
+# >= 0.18 at S 2048, far above the limit.  lse is f32 from exact
+# products in both types: within 1e-4.
+F32_TOL = {"o": 1e-5, "grad": 1e-4}
+BF16_TOL = {"tile_rel": 1e-2}
+LSE_TOL = 1e-4
+TILE = 64
+FLASH_OUT = ("o", "lse", "dq", "dk", "dv")
+
+
+def flash_inputs(torch, dtype, B, Hq, Hkv, Sq, Sk, D, dlse, seed):
+    """Flat [B*H, S, D] inputs on the card from a seeded generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rnd(B * Hq, Sq, D), rnd(B * Hkv, Sk, D), rnd(B * Hkv, Sk, D)
+    do = rnd(B * Hq, Sq, D)
+    dl = rnd(B * Hq, Sq, dt=torch.float32) if dlse else None
+    return q, k, v, do, dl
+
+
+def attention_work(B, Hq, Hkv, Sq, Sk, D, causal, esize):
+    """Visible (query, key) pairs, and the bytes each kernel must move
+    (inputs read once, outputs written once)."""
+    off = Sk - Sq
+    per_head = (sum(min(Sk, off + i + 1) for i in range(Sq)) if causal
+                else Sq * Sk)
+    pairs = B * Hq * per_head
+    qo = B * Hq * Sq * D * esize                  # q, o, do or dq
+    kv = B * Hkv * Sk * D * esize                 # k or v (dk, dv)
+    row = B * Hq * Sq * 4                         # lse or delta (f32)
+    return pairs, {"flash_fwd": 2 * qo + 2 * kv + row,
+                   "flash_bwd_dkdv": 2 * qo + 4 * kv + 2 * row,
+                   "flash_bwd_dq": 3 * qo + 2 * kv + 2 * row}
+
+
+def tile_rel_err(torch, got, want, rows=TILE):
+    """Largest ||got - want|| / ||want|| over the `rows`-row tiles of each
+    head ([BH, S, D]); a tile whose plain values are all zero must match
+    exactly."""
+    bh, n, d = want.shape
+    g = got.float().reshape(bh, n // rows, rows * d)
+    w = want.float().reshape(bh, n // rows, rows * d)
+    err, ref = (g - w).norm(dim=-1), w.norm(dim=-1)
+    return torch.where(err == 0, 0.0, err / ref).max().item()
+
+
+def flash_check(torch, bf16, got, want):
+    """Per output of FLASH_OUT: (errors, ok) of the kernel's `got`
+    against the plain `want`, at the tolerances above."""
+    errs, ok = {}, {}
+    for key in FLASH_OUT:
+        g, w = got[key].float(), want[key]
+        errs[f"{key}_max_abs_err"] = (g - w).abs().max().item()
+        if key == "lse":
+            ok[key] = errs["lse_max_abs_err"] <= LSE_TOL
+        elif bf16:
+            errs[f"{key}_tile_rel_err"] = tile_rel_err(torch, g, w)
+            ok[key] = errs[f"{key}_tile_rel_err"] <= BF16_TOL["tile_rel"]
+        else:
+            tol = F32_TOL["o" if key == "o" else "grad"]
+            ok[key] = bool(torch.allclose(g, w, atol=tol, rtol=tol))
+    return errs, ok
+
+
+def dropped_pair(torch, fa, q, k, v, do, dl, o, lse, want, scale):
+    """What a kernel would return that left out one fully visible pair of
+    tiles: the last query tile of the first query head against the middle
+    key tile.  o and lse lose that pair's probability mass; dq, dk and dv
+    its terms (from the kernel's o and lse, as `want`'s gradients)."""
+    qs = slice(q.shape[1] - TILE, q.shape[1])
+    kt = k.shape[1] // TILE // 2 * TILE
+    ks = slice(kt, kt + TILE)
+    q1, do1 = q[:1, qs].float(), do[:1, qs].float()
+    k1, v1 = k[:1, ks].float(), v[:1, ks].float()
+    wrong = {key: t.clone() for key, t in want.items()}
+    p = fa._probs(q1, k1, want["lse"][:1, qs], scale, False)[0, 0]
+    mass = p.sum(-1)
+    wrong["o"][0, qs] = (want["o"][0, qs] - p @ v1[0]) / (1 - mass)[:, None]
+    wrong["lse"][0, qs] += torch.log1p(-mass)
+    lse1 = lse[:1, qs]
+    delta1 = fa._delta(o[:1, qs], do1, None if dl is None else dl[:1, qs])
+    dk1, dv1 = fa.flash_bwd_dkdv_reference(q1, k1, v1, do1, lse1, delta1,
+                                           scale, False)
+    dq1 = fa.flash_bwd_dq_reference(q1, k1, v1, do1, lse1, delta1, scale,
+                                    False)
+    wrong["dq"][0, qs] -= dq1[0]
+    wrong["dk"][0, ks] -= dk1[0]
+    wrong["dv"][0, ks] -= dv1[0]
+    return wrong
+
+
+def phase_flash(torch, fa):
+    """B1 against attention_reference_with_lse; B2 and B3 against the
+    plain backward, in every FLASH_CASES case; in each bf16 case, that the
+    limits reject `dropped_pair`; times at FLASH_MAIN."""
+    checks = []
+    errs = {}
+    for i, case in enumerate(FLASH_CASES):
+        name, dtn, B, Hq, Hkv, Sq, Sk, D, causal, dlse = case
+        dtype = getattr(torch, dtn)
+        bf16 = dtype == torch.bfloat16
+        scale = 1.0 / D ** 0.5
+        q, k, v, do, dl = flash_inputs(torch, dtype, B, Hq, Hkv, Sq, Sk, D,
+                                       dlse, seed=100 + i)
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
+        dq, dk, dv = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, dl,
+                                                   scale, causal)
+        got = dict(zip(FLASH_OUT, (o, lse, dq, dk, dv)))
+        # The plain forward, and the plain backward from the same inputs
+        # (the kernel's o and lse), in f32.
+        want = dict(zip(FLASH_OUT, fa._flash_fwd_reference(
+            q.float(), k.float(), v.float(), scale, causal)
+            + fa.flash_attention_bwd_reference(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                dl, scale, causal)))
+        torch.cuda.synchronize()
+        rec = {"case": name, "dtype": dtn, "B": B, "Hq": Hq, "Hkv": Hkv,
+               "Sq": Sq, "Sk": Sk, "D": D, "causal": causal, "dlse": dlse}
+        found, ok = flash_check(torch, bf16, got, want)
+        rec.update(found)
+        rec["max_abs_plain"] = {key: want[key].abs().max().item()
+                                for key in FLASH_OUT}
+        rec["rms_plain"] = {key: want[key].square().mean().sqrt().item()
+                            for key in FLASH_OUT}
+        rec["ok"] = all(ok.values())
+        if bf16:
+            wrong = dropped_pair(torch, fa, q, k, v, do, dl, o, lse, want,
+                                 scale)
+            found_w, ok_w = flash_check(torch, True, wrong, want)
+            rec["dropped_pair"] = {key: found_w[
+                "lse_max_abs_err" if key == "lse" else f"{key}_tile_rel_err"]
+                for key in FLASH_OUT}
+            rec["dropped_pair_rejected"] = not any(ok_w.values())
+            rec["ok"] &= rec["dropped_pair_rejected"]
+            del wrong
+        checks.append(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"flash kernel disagrees with plain "
+                                 f"version, or a limit would pass a "
+                                 f"dropped tile pair: {rec}")
+        if case is FLASH_MAIN:
+            errs = {"flash_fwd": max(rec["o_max_abs_err"],
+                                     rec["lse_max_abs_err"]),
+                    "flash_bwd_dkdv": max(rec["dk_max_abs_err"],
+                                          rec["dv_max_abs_err"]),
+                    "flash_bwd_dq": rec["dq_max_abs_err"]}
+        del q, k, v, do, dl, o, lse, dq, dk, dv, got, want
+        torch.cuda.empty_cache()
+    return checks, flash_timing(torch, fa, errs)
+
+
+def flash_timing(torch, fa, errs):
+    """Kernel, plain and SDPA times at the training shapes (FLASH_MAIN)."""
+    name, dtn, B, Hq, Hkv, Sq, Sk, D, causal, _ = FLASH_MAIN
+    dtype = getattr(torch, dtn)
+    scale = 1.0 / D ** 0.5
+    q, k, v, do, _ = flash_inputs(torch, dtype, B, Hq, Hkv, Sq, Sk, D,
+                                  False, seed=7)
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
+    delta = fa._delta(o, do, None)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    n = 20
+    ms = {
+        "flash_fwd": time_ms(torch, lambda: fa.flash_attention_fwd_kernel(
+            q, k, v, scale, causal), flush, n=n),
+        "flash_bwd_dkdv": time_ms(torch, lambda: fa.flash_bwd_dkdv_kernel(
+            q, k, v, do, lse, delta, scale, causal), flush, n=n),
+        "flash_bwd_dq": time_ms(torch, lambda: fa.flash_bwd_dq_kernel(
+            q, k, v, do, lse, delta, scale, causal), flush, n=n),
+    }
+    plain_ms = {
+        "flash_fwd": time_ms(torch, lambda: fa._flash_fwd_reference(
+            q, k, v, scale, causal), flush, n=5, warmup=2),
+        "flash_bwd_dkdv": time_ms(torch, lambda: fa.flash_bwd_dkdv_reference(
+            q, k, v, do, lse, delta, scale, causal), flush, n=5, warmup=2),
+        "flash_bwd_dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
+            q, k, v, do, lse, delta, scale, causal), flush, n=5, warmup=2),
+    }
+    torch.cuda.empty_cache()
+    # Library yardsticks (never called by the port): SDPA forward, and
+    # its backward (dq, dk, dv together) through autograd.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q.reshape(B, Hq, Sq, D).detach().requires_grad_()
+    k4 = k.reshape(B, Hkv, Sk, D).detach().requires_grad_()
+    v4 = v.reshape(B, Hkv, Sk, D).detach().requires_grad_()
+    do4 = do.reshape(B, Hq, Sq, D)
+    with torch.no_grad():
+        lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=causal,
+                                              enable_gqa=True), flush, n=n)
+    out = sdpa(q4, k4, v4, is_causal=causal, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), flush, n=n)
+    pairs, nbytes = attention_work(B, Hq, Hkv, Sq, Sk, D, causal, 2)
+    flops = {"flash_fwd": 2 * 2 * D * pairs,
+             "flash_bwd_dkdv": 4 * 2 * D * pairs,
+             "flash_bwd_dq": 3 * 2 * D * pairs}
+    out = {}
+    for kname in ms:
+        b_ms, b_by = bound(flops[kname], nbytes[kname])
+        out[kname] = {"ms": ms[kname], "plain_ms": plain_ms[kname],
+                      "library_ms": lib_fwd if kname == "flash_fwd"
+                      else lib_bwd,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "flops": flops[kname], "bytes": nbytes[kname],
+                      "max_abs_err": errs.get(kname)}
+    return out
 
 
 def llama_kwargs(torch, n_layers=None, dtype=None):
@@ -386,6 +640,184 @@ def phase_e2e(torch, pa):
             "resend_equals_first_run": True}
 
 
+TRAIN = dict(batch=4, seq=2048, warmup=2, timed=6)
+
+
+def train_cfg(torch, n_layers=None, dtype=None, **over):
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    kw = llama_kwargs(torch, n_layers=n_layers, dtype=dtype)
+    kw.update(over)
+    return TransformerConfig(**kw)
+
+
+def phase_train(torch, fa):
+    """CompiledTrainStep on llama-1b at full width (16 layers), bf16,
+    seq 2048, remat "names", xent_chunk 2048, AdamW; one fixed batch of
+    4 x 2049 tokens from numpy seed 0: 2 warm-up steps, then TRAIN
+    ["timed"] timed steps, then one profiled step."""
+    import math
+    from ray_tpu_torch.models.transformer import num_params
+    from ray_tpu_torch.train import telemetry
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=True,
+                    remat_policy="names", xent_chunk=2048)
+    step = CompiledTrainStep(cfg, optimizer=make_optimizer(
+        learning_rate=3e-4, warmup_steps=2, total_steps=1000))
+    t0 = time.time()
+    state = step.init_state(seed=0)
+    batch = step.shard_batch(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    n_steps = TRAIN["warmup"] + TRAIN["timed"]
+    losses, norms, step_s, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    for i in range(n_steps):
+        before = dict(fa.launches)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())          # syncs
+        norms.append(m["grad_norm"].item())
+        step_s.append(time.perf_counter() - t)
+        per_step.append({n: fa.launches[n] - before[n] for n in before})
+    launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [i for i, d in enumerate(per_step)
+           if any(c != cfg.n_layers for c in d.values())]
+    if bad:
+        raise AssertionError(f"flash launches per step {per_step}: every "
+                             f"step must launch each kernel {cfg.n_layers}"
+                             " times (once per layer, no remat re-run)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss/grad_norm: {losses} "
+                             f"{norms}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
+                             f"of ln(vocab) = {math.log(cfg.vocab_size)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{losses}")
+    timed = sorted(step_s[TRAIN["warmup"]:])
+    p50 = statistics.median(timed)
+    tok_s = B * S / p50
+    fpt = step.flops_per_token(S)
+    peak = telemetry.peak_flops_for(torch.cuda.get_device_name(0))
+    out = {"phase": "train", "model": "llama-1b", "dtype": "bfloat16",
+           "params": num_params(state.params), "batch": B, "seq": S,
+           "remat_policy": cfg.remat_policy, "xent_chunk": cfg.xent_chunk,
+           "optimizer": "adamw lr 3e-4 warmup 2 total 1000, mu bf16",
+           "setup_s": setup_s, "losses": losses, "grad_norms": norms,
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_p50": p50 * 1e3,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "peak_flops": peak, "mfu": fpt * tok_s / peak,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": per_step[-1]}
+    return out, launches, train_profile(torch, step, state, batch, p50)
+
+
+def train_profile(torch, step, state, batch, wall_s):
+    """Where one training step's device time goes (torch.profiler over
+    one step; wall time is the timed steps' median, without the
+    profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    wall_ms = wall_s * 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+
+    def dev_ms(tag):
+        return sum(e.self_device_time_total for e in kernels
+                   if tag in e.key) / 1e3
+
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if any(t in e.key.lower() for t in
+                         ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+    return {"phase": "train_profile", "step_wall_ms": wall_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
+            if busy_us else None,
+            "flash_fwd_device_ms": dev_ms("flash_fwd_kernel"),
+            "flash_bwd_dkdv_device_ms": dev_ms("flash_bwd_dkdv_kernel"),
+            "flash_bwd_dq_device_ms": dev_ms("flash_bwd_dq_kernel"),
+            "gemm_device_ms": gemm_ms / 1e3,
+            "kernel_launches_profiled": sum(e.count for e in kernels),
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
+
+
+def phase_train_e2e(torch, fa):
+    """llama-1b widths at 2 layers in f32, seq 256, batch 2: the kernel
+    engine (attn_impl "flash") and the plain engine ("reference") from
+    the same parameters and batch agree step for step (loss, grad_norm,
+    rtol 1e-4) and in each parameter's change over the three steps
+    (||change_kernel - change_plain|| / ||change_plain|| <= 1e-3 per
+    leaf; a norm, so the few elements where Adam divides a gradient near
+    eps by itself do not decide it).  lr 1e-3 makes each change ~1e-3
+    per element, far above f32 rounding of the parameters."""
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer, _leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, steps = 2, 256, 3
+    base = train_cfg(torch, n_layers=2, dtype=torch.float32, max_seq=S,
+                     remat=True, remat_policy="names", xent_chunk=256)
+    params = init_params(base, seed=1, device="cuda")
+    tokens = np.random.RandomState(1).randint(0, base.vocab_size,
+                                              (B, S + 1))
+    runs = {}
+    for impl in ("flash", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        step = CompiledTrainStep(cfg, optimizer=make_optimizer(
+            learning_rate=1e-3, warmup_steps=1, total_steps=100))
+        state = step.init_state(params=params)
+        batch = step.shard_batch(tokens)
+        for name in fa.launches:
+            fa.launches[name] = 0
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[impl] = (metrics, dict(fa.launches),
+                      [p.detach() for p in _leaves(state.params)])
+    (km, kl, kp), (rm, rl, rp) = runs["flash"], runs["reference"]
+    if any(v != steps * base.n_layers for v in kl.values()) or \
+            any(rl.values()):
+        raise AssertionError(f"launches: kernel engine {kl}, plain engine "
+                             f"{rl}")
+    metric_err = max(abs(a - b) / abs(b) for x, y in zip(km, rm)
+                     for a, b in zip(x, y))
+    change = [(b - p0).norm().item() for b, p0 in zip(rp, _leaves(params))]
+    change_err = [(a - b).norm().item() / c
+                  for a, b, c in zip(kp, rp, change)]
+    ok = metric_err <= 1e-4 and max(change_err) <= 1e-3
+    out = {"phase": "train_e2e", "layers": 2, "dtype": "float32",
+           "batch": B, "seq": S, "steps": steps, "lr": 1e-3,
+           "kernel_engine": km, "plain_engine": rm,
+           "kernel_engine_launches": kl, "plain_engine_launches": rl,
+           "max_rel_err_loss_grad_norm": metric_err,
+           "max_rel_err_param_change": max(change_err),
+           "min_param_change_rms": min(
+               c / p0.numel() ** 0.5 for c, p0 in zip(change,
+                                                      _leaves(params))),
+           "ok": ok}
+    if not ok:
+        raise AssertionError(f"kernel and plain training disagree: {out}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -393,7 +825,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
+    emit({"phase": "versions", "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 1. build: from scratch, from the sources in this checkout.
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
@@ -407,22 +842,34 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "per_source_s": took, "ptxas": ptxas})
 
-    # 2. kernel vs plain
+    # 2. B4 vs plain
     checks, timing = phase_kernel(torch, pa)
     emit({"phase": "kernel", "checks": checks, "main_shapes": MAIN,
           "main_ctx": MAIN_CTX, **timing})
-
     # 3. serve at full width
     serve, launches, params, cfg = phase_serve(torch, pa)
     emit(serve)
     emit(phase_profile(torch, params, cfg))
     del params
     torch.cuda.empty_cache()
-
-    # 4. end to end, kernel vs plain
+    # 4. serving end to end, kernel vs plain
     emit(phase_e2e(torch, pa))
+    # 5. B1, B2, B3 vs plain; times at the training shapes
+    checks, ftiming = phase_flash(torch, fa)
+    emit({"phase": "flash", "checks": checks,
+          "main_case": FLASH_MAIN, "tolerance_f32": F32_TOL,
+          "tolerance_bf16": BF16_TOL, "tolerance_lse": LSE_TOL,
+          "timing": ftiming})
+    torch.cuda.empty_cache()
+    # 6. train llama-1b at full width through the kernels
+    train, train_launches, profile = phase_train(torch, fa)
+    emit(train)
+    emit(profile)
+    torch.cuda.empty_cache()
+    # 7. training end to end, kernel vs plain
+    emit(phase_train_e2e(torch, fa))
 
-    emit({"kernels": [{
+    kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -430,8 +877,22 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"]}]
+    replaces = {"flash_fwd": "ray_tpu/ops/attention.py:272",
+                "flash_bwd_dkdv": "ray_tpu/ops/attention.py:318",
+                "flash_bwd_dq": "ray_tpu/ops/attention.py:348"}
+    for kname, where in replaces.items():
+        t = ftiming[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": where, "launches": train_launches[kname],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,7 +10,10 @@ JAX reference.
 
 Ported so far: paged-KV serving (`serve.llm.LLMDeployment` /
 `PagedBatcher`) over `models.decoding` and the paged-attention decode
-kernel (`ops.paged_attention`).  Entry points run on CUDA unless the
+kernel (`ops.paged_attention`); one-device training
+(`train.train_step.CompiledTrainStep` over `models.transformer.loss_fn`)
+with the flash-attention forward and backward kernels
+(`ops.attention`).  Entry points run on CUDA unless the
 caller passes `device="cpu"`; without a GPU and without that request
 they raise instead of falling back to the CPU.
 """

@@ -8,20 +8,39 @@ stacked on axis 0 under "layers" (`wq [L,d,h,dh]`, `wo [L,h,dh,d]`, ...)
 runs in `cfg.dtype` with f32 norms, softmax and logits, as in the JAX
 package.
 
-Ported so far: the config, presets, init, and the helpers the serving
-path uses (`_norm`, `_rope`, `_w_out`).  `forward` / `loss_fn` come with
-the training slice, which needs the flash-attention kernels.
+Ported: the config, presets, init, the helpers the serving path uses
+(`_norm`, `_rope`, `_w_out`), and the training forward for dense llama
+and gpt2 on one device: `_layer_body`, `forward_hidden_aux`,
+`forward_hidden`, `forward`, `fused_cross_entropy` and `loss_fn`.  Every
+layer reaches the flash kernels through `ops.attention.attention_with_lse`
+(`cfg.attn_impl`).  `mesh` must be None (the sharded path is ROADMAP A6)
+and `moe_experts > 0` raises (the MoE block waits for A9).
+
+Remat.  `cfg.remat` checkpoints each layer with `torch.utils.checkpoint`
+by policy: "names" and "dots" checkpoint the two halves around the
+attention call — (norm, qkv, rope) and (wo, residual, norm, MLP) — and
+leave the attention Function outside, so its own residuals (q, k, v, o,
+lse) are kept and the flash forward is never re-run in the backward pass
+(a ctypes launch is invisible to selective checkpointing).  "dots" also
+keeps the matrix products' outputs, "names" recomputes them.
+"nothing" checkpoints the whole layer and re-runs everything, the flash
+forward included, as JAX's `nothing_saveable` does.  Policies change
+memory and FLOPs, never values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.attention import attention_with_lse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +221,234 @@ def _rope(x, positions, theta):
 def _w_out(params, cfg: TransformerConfig):
     return (params["tok_embed"].T if cfg.tie_embeddings
             else params["lm_head"])
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """bf16 [M, K] @ [K, N] on the card with f32 accumulation and an f32
+    output (cuBLAS via `torch.mm(out_dtype=)`, which has no autograd
+    formula).  The backward multiplies in bf16 with f32 accumulation and
+    returns gradients in the operands' dtype, as JAX casts its f32
+    transposed products back to bf16; the f32 cotangent is rounded to
+    bf16 first, one of the places where bf16 rounds differently in the
+    two packages."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.t() if ctx.needs_input_grad[0] else None
+        gb = a.t() @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _matmul_f32(a, b):
+    """[M, K] @ [K, N] -> f32: operands in their dtype, f32 accumulation
+    and output (JAX's `preferred_element_type=jnp.float32`).  bf16 on the
+    card goes through `_MatmulF32Out`; elsewhere the operands are widened
+    (exact for bf16) and multiplied in f32."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return _MatmulF32Out.apply(a, b)
+    return a.float() @ b.float()
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+def _check_supported(cfg: TransformerConfig, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "ray_tpu_torch runs the model on one device (mesh=None); the "
+            "sharded path is ROADMAP Queue A, A6")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "the MoE block is not ported yet (ROADMAP Queue A, A9: MoE "
+            "with expert parallelism); use moe_experts=0")
+
+
+def _attn_in(cfg: TransformerConfig, x, p, positions):
+    """Norm, q/k/v projections and rope: x [B,S,D] -> q, k, v [B,H,S,Dh]."""
+    rms = cfg.arch == "llama"
+    h = _norm(x, p["attn_norm"], p.get("attn_norm_b"), cfg.norm_eps, rms)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(h.dtype))
+    k = torch.einsum("bsd,dhk->bshk", h, p["wk"].to(h.dtype))
+    v = torch.einsum("bsd,dhk->bshk", h, p["wv"].to(h.dtype))
+    if cfg.arch == "llama":
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _attention(cfg: TransformerConfig, q, k, v):
+    # lse is a residual of the flash backward only; its cotangent is None.
+    o, _ = attention_with_lse(q, k, v, causal=True, impl=cfg.attn_impl,
+                              block_q=cfg.attn_block_q,
+                              block_k=cfg.attn_block_k)
+    return o
+
+
+def _attn_out_mlp(cfg: TransformerConfig, x, o, p):
+    """wo, residual, norm, MLP, residual: -> x [B,S,D]."""
+    o = o.transpose(1, 2)                                  # [B,S,H,Dh]
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    rms = cfg.arch == "llama"
+    h = _norm(x, p["mlp_norm"], p.get("mlp_norm_b"), cfg.norm_eps, rms)
+    if cfg.arch == "llama":
+        gate = h @ p["w_gate"].to(h.dtype)
+        up = h @ p["w_up"].to(h.dtype)
+        act = F.silu(gate.float()).to(h.dtype) * up
+    else:
+        up = h @ p["w_up"].to(h.dtype) + p["b_up"].to(h.dtype)
+        act = F.gelu(up.float(), approximate="tanh").to(h.dtype)
+    down = act @ p["w_down"].to(act.dtype)
+    if cfg.arch == "gpt2":
+        down = down + p["b_down"].to(down.dtype)
+    return x + down
+
+
+def _layer_body(cfg: TransformerConfig, mesh, x, p, positions):
+    """One decoder layer, no remat. x: [B, S, D] -> (x, aux = 0)."""
+    _check_supported(cfg, mesh)
+    q, k, v = _attn_in(cfg, x, p, positions)
+    x = _attn_out_mlp(cfg, x, _attention(cfg, q, k, v), p)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+_MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+               torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    matrix products, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMUL_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(cfg: TransformerConfig, x, p, positions):
+    policy = cfg.remat_policy
+    if policy == "nothing":
+        return checkpoint(lambda x_: _layer_body(cfg, None, x_, p,
+                                                 positions)[0],
+                          x, use_reentrant=False)
+    if policy not in ("names", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    q, k, v = checkpoint(functools.partial(_attn_in, cfg), x, p, positions,
+                         **kw)
+    o = _attention(cfg, q, k, v)
+    return checkpoint(functools.partial(_attn_out_mlp, cfg), x, o, p, **kw)
+
+
+def _layers(params) -> list:
+    """Per-layer parameter dicts.  One `unbind` per stacked tensor, so
+    the backward stacks each weight's per-layer gradients once."""
+    names = list(params["layers"])
+    return [dict(zip(names, ts)) for ts in
+            zip(*(params["layers"][n].unbind(0) for n in names))]
+
+
+def forward_hidden_aux(params: Dict[str, Any], tokens: torch.Tensor,
+                       cfg: TransformerConfig, mesh=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] int -> (final-norm hidden [B, S, D], summed MoE aux
+    loss — zero for the dense models the port runs)."""
+    _check_supported(cfg, mesh)
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["tok_embed"]).to(cfg.dtype)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    if cfg.arch == "gpt2":
+        x = x + params["pos_embed"][:S][None].to(cfg.dtype)
+    for p in _layers(params):
+        if cfg.remat:
+            x = _remat_layer(cfg, x, p, positions)
+        else:
+            x = _layer_body(cfg, mesh, x, p, positions)[0]
+    rms = cfg.arch == "llama"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _norm(x, params["final_norm"], params.get("final_norm_b"),
+                 cfg.norm_eps, rms), aux
+
+
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                   cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """tokens: [B, S] int -> final-norm hidden states [B, S, D]."""
+    return forward_hidden_aux(params, tokens, cfg, mesh)[0]
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor,
+            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """tokens: [B, S] int -> logits [B, S, vocab] (f32; operands in
+    cfg.dtype, f32 accumulation)."""
+    x = forward_hidden(params, tokens, cfg, mesh)
+    B, S, D = x.shape
+    logits = _matmul_f32(x.reshape(B * S, D).to(cfg.dtype),
+                         _w_out(params, cfg).to(cfg.dtype))
+    return logits.reshape(B, S, -1)
+
+
+def _xent_chunk(xc, tc, wd):
+    """Summed next-token nll of one chunk; targets < 0 are padding."""
+    logits = _matmul_f32(xc, wd)                           # [chunk, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(1, tc.clamp(min=0)[:, None].long())[:, 0]
+    return torch.where(tc >= 0, lse - tgt, 0.0).sum()
+
+
+def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
+                        targets: torch.Tensor,
+                        cfg: TransformerConfig) -> torch.Tensor:
+    """Chunked softmax cross-entropy that never builds the [B, S, V]
+    logits: one [chunk, V] f32 block at a time, recomputed in the backward
+    pass (`torch.utils.checkpoint` per chunk), so peak memory is one
+    block.  Targets are padded with -1 to whole chunks; the sum is
+    divided by the true token count."""
+    B, S, D = x.shape
+    N = B * S
+    chunk = min(cfg.xent_chunk or N, N)
+    xf = x.reshape(N, D)
+    tf = targets.reshape(N)
+    n = -(-N // chunk)
+    pad = n * chunk - N
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+        tf = F.pad(tf, (0, pad), value=-1)
+    wd = w_out.to(cfg.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_xent_chunk, xf[sl], tf[sl], wd,
+                                   use_reentrant=False)
+    return total / N
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy.  tokens: [B, S]; predicts tokens[:,1:].
+    Returns (loss, {"loss", "ppl"})."""
+    targets = tokens[:, 1:]
+    x, _ = forward_hidden_aux(params, tokens[:, :-1], cfg, mesh)
+    if cfg.xent_chunk is None:
+        B, S, D = x.shape
+        logits = _matmul_f32(x.reshape(B * S, D).to(cfg.dtype),
+                             _w_out(params, cfg).to(cfg.dtype))
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(1, targets.reshape(-1, 1).long())[:, 0]
+        loss = nll.mean()
+    else:
+        loss = fused_cross_entropy(x, _w_out(params, cfg), targets, cfg)
+    return loss, {"loss": loss, "ppl": torch.exp(loss)}
 
 
 def num_params(params) -> int:

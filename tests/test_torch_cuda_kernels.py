@@ -4,12 +4,18 @@ card (where JAX is absent, hence --noconftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: f32 1e-5 (summation order only); bf16 2e-2 (bf16 output
-rounding plus summation order)."""
+Tolerances: paged attention f32 1e-5 (summation order only), bf16 2e-2
+(bf16 output rounding plus summation order).  Flash attention uses
+chip_smoke.py's limits: f32 1e-5 for o and 1e-4 for gradients (sums over
+whole sequences); bf16 o and gradients by their largest relative error
+over 64-row tiles of each head (`tile_rel_err`), the plain version
+running in f32 from the same bf16 inputs; lse within 1e-4."""
 
 import pytest
 import torch
 
+from chip_smoke import BF16_TOL, F32_TOL, LSE_TOL, tile_rel_err
+from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 
 CASES = [  # dtype, H, Hkv, D, bs, W
@@ -45,3 +51,110 @@ def test_paged_attention_kernel_matches_plain(dtype, H, Hkv, D, bs, W):
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
     assert torch.all(got[0] == 0)
+
+
+FLASH_CASES = [  # dtype, B, Hq, Hkv, Sq, Sk, D, causal, nonzero dlse
+    (torch.bfloat16, 2, 8, 2, 512, 512, 64, True, False),
+    (torch.float32, 1, 8, 2, 256, 256, 64, True, True),
+    (torch.bfloat16, 1, 8, 1, 256, 256, 128, True, True),
+    (torch.float32, 1, 4, 4, 256, 384, 128, False, False),
+    (torch.bfloat16, 2, 4, 2, 256, 1024, 64, True, True),
+    (torch.float32, 1, 4, 2, 128, 512, 64, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,Sq,Sk,D,causal,dlse", FLASH_CASES)
+def test_flash_kernels_match_plain(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
+                                   dlse):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rnd(B * Hq, Sq, D), rnd(B * Hkv, Sk, D), rnd(B * Hkv, Sk, D)
+    do = rnd(B * Hq, Sq, D)
+    dl = rnd(B * Hq, Sq, dt=torch.float32) if dlse else None
+    scale = D ** -0.5
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
+    grads = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, dl, scale,
+                                          causal)
+    o_ref, lse_ref = fa._flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), scale, causal)
+    grads_ref = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), dl,
+        scale, causal)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    f32 = dtype == torch.float32
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    for got, want in zip((o,) + tuple(grads), (o_ref,) + tuple(grads_ref)):
+        if f32:
+            tol = F32_TOL["o"] if got is o else F32_TOL["grad"]
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        else:
+            assert tile_rel_err(torch, got, want) <= BF16_TOL["tile_rel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use", ["both", "o", "lse"])
+def test_flash_function_matches_autograd_of_reference(use):
+    """The autograd Function on the card (through the "auto" dispatcher)
+    against torch autograd of the reference, f32, with each output's
+    cotangent present or absent (None reaches the backward)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    B, Hq, Hkv, S, D = 2, 8, 2, 256, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, k, v = rnd(B, Hq, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    do, dlse = rnd(B, Hq, S, D), rnd(B, Hq, S)
+
+    def run(impl):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        o, lse = fa.attention_with_lse(tq, tk, tv, True, impl=impl)
+        loss = 0
+        if use in ("both", "o"):
+            loss = loss + (o * do).sum()
+        if use in ("both", "lse"):
+            loss = loss + (lse * dlse).sum()
+        grads = torch.autograd.grad(loss, (tq, tk, tv), allow_unused=True)
+        # lse does not depend on v: its gradient is None or zeros.
+        return [o, lse] + [torch.zeros_like(t) if g is None else g
+                           for g, t in zip(grads, (tq, tk, tv))]
+
+    before = dict(fa.launches)
+    got = run("auto")
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+    want = run("reference")
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + 1
+    for g, w, tol in zip(got, want, (1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_auto_raises_on_cuda_shapes_the_kernels_do_not_take():
+    """"auto" on CUDA tensors launches the kernels or raises; it never
+    runs the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = dict(fa.launches)
+    for qs, ks, dtype, match in (
+            ((1, 4, 128, 32), (1, 2, 128, 32), torch.float32, "multiple"),
+            ((1, 4, 128, 192), (1, 2, 128, 192), torch.float32,
+             "head dim"),
+            ((1, 4, 200, 64), (1, 2, 200, 64), torch.float32, "128"),
+            ((1, 4, 128, 64), (1, 2, 128, 64), torch.float16, "dtypes")):
+        q = torch.zeros(qs, dtype=dtype, device="cuda")
+        k = torch.zeros(ks, dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match=match):
+            fa.attention_with_lse(q, k, k, True, impl="auto")
+    assert fa.launches == before

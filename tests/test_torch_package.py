@@ -73,6 +73,7 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     from ray_tpu_torch._private.device import resolve_device
     from ray_tpu_torch.models import convert, decoding, transformer
     from ray_tpu_torch.serve.llm import LLMDeployment
+    from ray_tpu_torch.train.train_step import CompiledTrainStep
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = transformer.TransformerConfig(vocab_size=11, d_model=16,
                                         n_layers=1, n_heads=2)
@@ -84,6 +85,7 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         lambda: decoding.init_caches(cfg, 2, 16),
         lambda: LLMDeployment(dict(vocab_size=11, d_model=16, n_layers=1,
                                    n_heads=2)),
+        lambda: CompiledTrainStep(cfg).init_state(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,0 +1,157 @@
+"""Training-forward parity: the port's `models/transformer.py` forward,
+loss and gradients against the JAX package's on the same weights
+(`convert.params_from_jax`) and tokens, for llama (GQA) and gpt2 at a tiny
+f32 size on the CPU (attention through the reference path on both sides).
+
+Tolerance: 1e-5 on logits and loss, 1e-4 on gradients — f32 on both
+sides, differing only in summation order.  Remat policies must give the
+same gradients as no remat (1e-6: the recomputation repeats the same
+operations)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.models import convert
+from ray_tpu_torch.models import transformer as tt
+
+ARCHS = {
+    "llama": dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                  n_kv_heads=2, max_seq=32, arch="llama", remat=False),
+    "gpt2": dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                 max_seq=32, arch="gpt2", rope_theta=0.0, remat=False),
+}
+B, S = 2, 17                      # loss over S - 1 = 16 positions
+XENT = {"chunked_padded": 12, "single_chunk": 64, "none": None}
+GRAD_XENT = ("chunked_padded", "none")
+
+
+def _tokens(arch):
+    rng = np.random.RandomState(len(arch))
+    return rng.randint(0, ARCHS[arch]["vocab_size"], (B, S)).astype(np.int32)
+
+
+def _port_cfg(arch, **kw):
+    return tt.TransformerConfig(**{**ARCHS[arch], "dtype": torch.float32,
+                                   **kw})
+
+
+def _leaves(tree, prefix=""):
+    for key in sorted(tree):
+        node = tree[key]
+        name = f"{prefix}/{key}" if prefix else key
+        if isinstance(node, dict):
+            yield from _leaves(node, name)
+        else:
+            yield name, node
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """Per arch: numpy params, logits, and (loss, grads) per xent mode."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.models import transformer as jt
+    out = {}
+    for arch in ARCHS:
+        cfg = jt.TransformerConfig(**{**ARCHS[arch], "dtype": jnp.float32})
+        params = jt.init_params(cfg, jax.random.PRNGKey(0))
+        tokens = jnp.asarray(_tokens(arch))
+        cfgs = {m: dataclasses.replace(cfg, xent_chunk=c)
+                for m, c in XENT.items()}
+
+        def everything(p, cfgs=cfgs, cfg=cfg, tokens=tokens):
+            # One jit per arch: logits, and (loss, grads) per xent mode.
+            out = {"logits": jt.forward(p, tokens[:, :-1], cfg)}
+            for m, c in cfgs.items():
+                fn = lambda p_, c=c: jt.loss_fn(p_, tokens, c)[0]
+                out[m] = (jax.value_and_grad(fn)(p) if m in GRAD_XENT
+                          else (fn(p), None))
+            return out
+
+        got = jax.tree.map(np.asarray, jax.jit(everything)(params))
+        res = {"params": jax.tree.map(np.asarray, params),
+               "logits": got["logits"]}
+        for m in XENT:
+            res[m] = (float(got[m][0]), got[m][1])
+        out[arch] = res
+    return out
+
+
+def _port_params(jax_side, arch):
+    cfg = _port_cfg(arch)
+    params = convert.params_from_jax(jax_side[arch]["params"], cfg,
+                                     device="cpu")
+    for _, p in _leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def _port_loss_grads(params, arch, **kw):
+    cfg = _port_cfg(arch, **kw)
+    tokens = torch.from_numpy(_tokens(arch))
+    loss, metrics = tt.loss_fn(params, tokens, cfg)
+    names, leaves = zip(*_leaves(params))
+    grads = torch.autograd.grad(loss, leaves)
+    assert torch.allclose(metrics["ppl"], torch.exp(loss))
+    return loss.item(), dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_forward_logits_match_jax(jax_side, arch):
+    params = _port_params(jax_side, arch)
+    tokens = torch.from_numpy(_tokens(arch))[:, :-1]
+    with torch.no_grad():
+        logits = tt.forward(params, tokens, _port_cfg(arch))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.numpy(), jax_side[arch]["logits"],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", sorted(XENT))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_loss_and_grads_match_jax(jax_side, arch, mode):
+    params = _port_params(jax_side, arch)
+    want_loss, want_grads = jax_side[arch][mode]
+    if want_grads is None:
+        with torch.no_grad():
+            loss = tt.loss_fn(params, torch.from_numpy(_tokens(arch)),
+                              _port_cfg(arch, xent_chunk=XENT[mode]))[0]
+        np.testing.assert_allclose(loss.item(), want_loss, atol=1e-5,
+                                   rtol=1e-5)
+        return
+    loss, grads = _port_loss_grads(params, arch, xent_chunk=XENT[mode])
+    np.testing.assert_allclose(loss, want_loss, atol=1e-5, rtol=1e-5)
+    want = dict(_leaves(want_grads))
+    assert sorted(grads) == sorted(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name], atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("policy", ["names", "dots", "nothing"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_remat_policies_keep_gradients(jax_side, arch, policy):
+    params = _port_params(jax_side, arch)
+    loss0, g0 = _port_loss_grads(params, arch, remat=False)
+    loss1, g1 = _port_loss_grads(params, arch, remat=True,
+                                 remat_policy=policy)
+    assert abs(loss0 - loss1) <= 1e-6
+    for name in g0:
+        np.testing.assert_allclose(g1[name].numpy(), g0[name].numpy(),
+                                   atol=1e-6, rtol=1e-6, err_msg=name)
+
+
+def test_unsupported_configs_raise():
+    params = tt.init_params(_port_cfg("llama"), device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tt.loss_fn(params, tokens, _port_cfg("llama"), mesh=object())
+    moe = _port_cfg("llama", moe_experts=4)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tt.forward(tt.init_params(moe, device="cpu"), tokens, moe)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tt.loss_fn(params, tokens, _port_cfg("llama", remat=True,
+                                             remat_policy="everything"))
