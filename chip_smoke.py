@@ -8,11 +8,17 @@ script exits non-zero without a result line:
 
   1. build   — compile every kernel source under ray_tpu_torch/ops/csrc
                with nvcc (sm_90a), one process per source, in parallel;
+               each kernel's registers and spills (ptxas) and dynamic
+               shared memory;
   2. kernel  — the paged-attention kernel against its plain PyTorch
                version at the serving path's shapes (bf16, atol=rtol=2e-2:
                bf16 output and a different summation order) and in f32
                (atol=rtol=1e-5: summation order only), plus D=128, G=1,
-               G=8 and odd block sizes; kernel / plain / SDPA times;
+               G=8, odd block sizes and a 4096-token table whose contexts
+               end on and just past partition boundaries; bf16 also by
+               the largest relative error over (sequence, head) rows
+               (B4_ROW_REL), which a result with one partition left out
+               must fail; kernel / plain / SDPA times;
   3. serve   — LLMDeployment at llama-1b's full width (16 layers, bf16,
                random weights from a seed): 16 concurrent requests, one
                prefix-cache re-send; every request finishes; the kernel's
@@ -38,8 +44,10 @@ script exits non-zero without a result line:
 
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its main
 path — the serving run for B4, the training run for B1-B3 — max error,
-times, the card's bound), the card's name and power limit as nvidia-smi
-reports them, and last `{"ok": true, "device": {...}}`.
+times two ways (see `time_ms`), the host's time to issue one call, the
+card's bound, the kernel / library ratio), the card's name and power
+limit as nvidia-smi reports them, and last `{"ok": true, "device":
+{...}}`.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -63,27 +72,101 @@ PEAK_BYTES_S = 3.35e12
 
 MAIN = dict(B=8, H=32, Hkv=8, D=64, bs=16, W=32)   # llama-1b serving
 MAIN_CTX = [0, 1, 17, 512, 100, 255, 333, 64]
+LONG_CTX = [0, 1, 64, 65, 4096, 1000, 128, 2049]
+# bf16 B4: the largest relative error over (sequence, head) rows, both
+# sides rounded to bf16.  A sound result differs by a one-ulp flip of a
+# few elements (an ulp is at most 2**-7 of an element's size); leaving
+# out one 64-token partition of a 4096-token context is off by about
+# sqrt(64 / 4096) = 0.125.
+B4_ROW_REL = 4e-3
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10) -> float:
-    """Median device time of `fn` over n launches (CUDA events around
-    each launch), with the L2 cache flushed before each one."""
-    times = []
+def ptxas_report(log: str) -> dict:
+    """{kernel<args>: "registers, shared memory, spills"} from nvcc's
+    -Xptxas -v output, plus its performance advisories."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"\d((?:paged|flash)_[a-z_]+?_kernel)I(\w*?)EEv", ln)
+        if m:                  # a mangled name: template arguments to text
+            args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
+            args = args.replace("13__nv_bfloat16", "bf16,")
+            if args.startswith("f"):
+                args = "f32," + args[1:]
+            name = f"{m.group(1)}<{args.rstrip(',')}>"
+            out[name] = ""
+        elif name and ("registers" in ln or "spill" in ln):
+            text = ln.split(":", 1)[-1] if "registers" in ln else ln
+            out[name] = f"{out[name]} {text.strip()}".strip()
+        elif "Potential Performance Loss" in ln:
+            out.setdefault("advisories", []).append(ln.strip()[:200])
+    return out
+
+
+def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10) -> dict:
+    """Times of one call of `fn`, medians over n calls, with the L2 cache
+    flushed (256 MB written) before each call, read two ways in turn:
+
+    ms         CUDA events recorded around the call right after the
+               flush: any host time of the call that the flush's
+               ~0.08 ms on the card does not cover is in the interval;
+    device_ms  the same after a ~1 ms spin on the card, which keeps it
+               busy while the host enqueues the events and the call, so
+               the interval holds device time only;
+    host_ms    the host's time to issue the call (perf_counter around it
+               while the card spins, so nothing waits on the device)."""
+    wall, dev, host = [], [], []
     for i in range(warmup + n):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if i >= warmup:
-            times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for spin in (False, True):
+            flush.zero_()
+            if spin:
+                torch.cuda._sleep(2_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                if spin:
+                    dev.append(start.elapsed_time(end))
+                    host.append((t1 - t0) * 1e3)
+                else:
+                    wall.append(start.elapsed_time(end))
+    return {"ms": statistics.median(wall),
+            "device_ms": statistics.median(dev),
+            "host_ms": statistics.median(host)}
+
+
+def row_rel_err(torch, got, want):
+    """Per row (last axis): ||got - want|| / ||want||, or ||got|| where
+    want is all zeros."""
+    g, w = got.float(), want.float()
+    num, den = (g - w).norm(dim=-1), w.norm(dim=-1)
+    return torch.where(den > 0, num / den.clamp_min(1e-30), num)
+
+
+KERNEL_TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "ratio_to_library", "device_ms", "plain_device_ms",
+                    "library_device_ms", "device_ratio_to_library",
+                    "host_ms", "library_host_ms")
+
+
+def times_of(kern, plain, lib):
+    """The time keys of one kernel's record from `time_ms` readings."""
+    return {"ms": kern["ms"], "device_ms": kern["device_ms"],
+            "host_ms": kern["host_ms"], "plain_ms": plain["ms"],
+            "plain_device_ms": plain["device_ms"], "library_ms": lib["ms"],
+            "library_device_ms": lib["device_ms"],
+            "library_host_ms": lib["host_ms"],
+            "ratio_to_library": kern["ms"] / lib["ms"],
+            "device_ratio_to_library": kern["device_ms"]
+            / lib["device_ms"]}
 
 
 def bound(flops, nbytes):
@@ -121,6 +204,10 @@ def phase_kernel(torch, pa):
         (torch.float32, dict(bs=5, W=20), [0, 1, 7, 100, 99, 3, 50, 64],
          1e-5),
         (torch.float32, dict(bs=64, W=8), MAIN_CTX, 1e-5),
+        # A long table (W*bs 4096, 64 partitions of 64 tokens): contexts
+        # 0, 1, one partition exactly, one partition + 1, the full table.
+        (torch.bfloat16, dict(W=256), LONG_CTX, 2e-2),
+        (torch.float32, dict(H=64, D=128, W=256), LONG_CTX, 1e-5),  # G=8
     ]
     checks = []
     main_err = None
@@ -135,6 +222,22 @@ def phase_kernel(torch, pa):
         checks.append({"dtype": str(dtype).replace("torch.", ""),
                        **shape, "ctx": ctx, "tol": tol,
                        "max_abs_err": err, "ok": ok})
+        if dtype == torch.bfloat16:
+            # Rows of the kernel's result, and of the plain result with
+            # the first partition left out (block table shifted by one
+            # partition, contexts shortened by it): the check must pass
+            # the one and fail the other.
+            rel = row_rel_err(torch, got, want).max().item()
+            part_blocks, n_parts = pa.split_plan(shape["W"], shape["bs"])
+            q, kp, vp, bt, lens = args
+            dropped = pa.paged_attention_reference(
+                q, kp, vp, torch.roll(bt, -part_blocks, 1),
+                (lens - part_blocks * shape["bs"]).clamp(min=0))
+            bad = row_rel_err(torch, dropped, want)[lens > 0].min().item()
+            checks[-1].update(row_rel_err=rel, row_rel_tol=B4_ROW_REL,
+                              dropped_partition_min_row_rel_err=bad)
+            ok = ok and rel <= B4_ROW_REL and bad > B4_ROW_REL
+            checks[-1]["ok"] = ok
         if not ok:
             raise AssertionError(f"kernel disagrees with plain version: "
                                  f"{checks[-1]}")
@@ -144,9 +247,9 @@ def phase_kernel(torch, pa):
     q, kp, vp, bt, lens = kernel_inputs(torch, torch.bfloat16,
                                         ctx=MAIN_CTX, seed=0, **MAIN)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    ms = time_ms(torch, lambda: pa.paged_attention_kernel(
+    kern = time_ms(torch, lambda: pa.paged_attention_kernel(
         q, kp, vp, bt, lens), flush)
-    plain_ms = time_ms(torch, lambda: pa.paged_attention_reference(
+    plain = time_ms(torch, lambda: pa.paged_attention_reference(
         q, kp, vp, bt, lens), flush)
     # Library yardstick: SDPA over the KV window already gathered dense
     # (GQA heads expanded, ctx mask); not used anywhere in the port.
@@ -161,8 +264,7 @@ def phase_kernel(torch, pa):
             < lens[:, None])[:, None, None, :]
     qd = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
-                         flush)
+    lib = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask), flush)
     esize = 2
     ctx_sum = sum(MAIN_CTX)
     blocks_read = sum(-(-c // bs) for c in MAIN_CTX)
@@ -171,7 +273,7 @@ def phase_kernel(torch, pa):
                    + blocks_read * 4 + B * 4)         # table, lens
     flops = 4 * ctx_sum * H * D
     bound_ms, bound_by = bound(flops, bytes_moved)
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    timing = {**times_of(kern, plain, lib),
               "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes": bytes_moved, "flops": flops,
               "max_abs_err": main_err}
@@ -401,13 +503,36 @@ def flash_timing(torch, fa, errs):
     out = {}
     for kname in ms:
         b_ms, b_by = bound(flops[kname], nbytes[kname])
-        out[kname] = {"ms": ms[kname], "plain_ms": plain_ms[kname],
-                      "library_ms": lib_fwd if kname == "flash_fwd"
-                      else lib_bwd,
+        out[kname] = {**times_of(ms[kname], plain_ms[kname],
+                                 lib_fwd if kname == "flash_fwd"
+                                 else lib_bwd),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "flops": flops[kname], "bytes": nbytes[kname],
                       "max_abs_err": errs.get(kname)}
+    out["flash_fwd_d128"] = flash_fwd_d128_timing(torch, fa, flush)
     return out
+
+
+def flash_fwd_d128_timing(torch, fa, flush):
+    """B1 at head dim 128 (B 4, Hq 16, Hkv 4, S 2048, causal, bf16: the
+    FLOPs of the training shapes) against SDPA's forward."""
+    B, Hq, Hkv, S, D = 4, 16, 4, 2048, 128
+    q, k, v, _, _ = flash_inputs(torch, torch.bfloat16, B, Hq, Hkv, S, S,
+                                 D, False, seed=8)
+    scale = 1.0 / D ** 0.5
+    kern = time_ms(torch, lambda: fa.flash_attention_fwd_kernel(
+        q, k, v, scale, True), flush, n=20)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.reshape(B, -1, S, D) for t in (q, k, v))
+    lib = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True,
+                                      enable_gqa=True), flush, n=20)
+    pairs, nbytes = attention_work(B, Hq, Hkv, S, S, D, True, 2)
+    b_ms, b_by = bound(2 * 2 * D * pairs, nbytes["flash_fwd"])
+    return {"shape": [B, Hq, Hkv, S, D], "ms": kern["ms"],
+            "device_ms": kern["device_ms"], "host_ms": kern["host_ms"],
+            "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+            "ratio_to_library": kern["ms"] / lib["ms"],
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def llama_kwargs(torch, n_layers=None, dtype=None):
@@ -577,8 +702,10 @@ def phase_profile(torch, params, cfg):
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_ms = statistics.median(walls) * 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    attn_us = sum(e.self_device_time_total for e in kernels
-                  if "paged_attention" in e.key)
+    attn = [e for e in kernels if "paged_partition" in e.key
+            or "paged_merge" in e.key]
+    attn_us = sum(e.self_device_time_total for e in attn)
+    calls = sum(e.count for e in attn if "paged_partition" in e.key)
     return {"phase": "decode_profile", "slots": B, "ctx": ctx,
             "steps": steps, "dispatch_wall_ms": wall_ms,
             "host_enqueue_ms": statistics.median(enqueue) * 1e3,
@@ -586,6 +713,9 @@ def phase_profile(torch, params, cfg):
             "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
             if busy_us else None,
             "paged_attention_device_ms": attn_us / 1e3,
+            "paged_attention_calls": calls,
+            "paged_attention_device_us_per_call": attn_us / calls
+            if calls else None,
             "kernel_launches_profiled": sum(e.count for e in kernels),
             "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
                                 e.count] for e in top]}
@@ -748,7 +878,7 @@ def train_profile(torch, step, state, batch, wall_s):
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
             if busy_us else None,
-            "flash_fwd_device_ms": dev_ms("flash_fwd_kernel"),
+            "flash_fwd_device_ms": dev_ms("flash_fwd"),
             "flash_bwd_dkdv_device_ms": dev_ms("flash_bwd_dkdv_kernel"),
             "flash_bwd_dq_device_ms": dev_ms("flash_bwd_dq_kernel"),
             "gemm_device_ms": gemm_ms / 1e3,
@@ -836,11 +966,18 @@ def main() -> int:
     took = _build.build()
     ptxas = {}
     for name in took:
-        log = _build.library_path(name).with_suffix(".log").read_text()
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+        ptxas.update(ptxas_report(
+            _build.library_path(name).with_suffix(".log").read_text()))
+    smem = {}                  # dynamic shared memory per kernel launch
+    for kernel, fn in (
+            ("paged_partition_kernel", pa._library().rtt_paged_smem_bytes),
+            ("flash_fwd", fa._library().rtt_flash_fwd_smem_bytes)):
+        for dt, code in (("f32", 0), ("bf16", 1)):
+            for d in (64, 128):
+                smem[f"{kernel}<{dt},{d}>"] = fn(d, code)
     emit({"phase": "build", "seconds": time.time() - t0,
-          "per_source_s": took, "ptxas": ptxas})
+          "per_source_s": took, "ptxas": ptxas,
+          "dynamic_smem_bytes": smem})
 
     # 2. B4 vs plain
     checks, timing = phase_kernel(torch, pa)
@@ -876,10 +1013,7 @@ def main() -> int:
         "replaces": "ray_tpu/ops/paged_attention.py:195",
         "launches": launches,
         "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]
+        **{k: timing[k] for k in KERNEL_TIME_KEYS}}]
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:272",
                 "flash_bwd_dkdv": "ray_tpu/ops/attention.py:318",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:348"}
@@ -889,9 +1023,8 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": where, "launches": train_launches[kname],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "max_abs_err": t["max_abs_err"],
+            **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

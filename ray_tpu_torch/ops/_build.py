@@ -5,12 +5,15 @@ with a plain C interface, `ray_tpu_torch/_build/lib<name>.<hash>.so`,
 loaded with ctypes.  The hash covers the source, the headers in `csrc/`
 and the flags, so an edited source rebuilds and an unchanged one loads
 the library already built.  `build()` starts one nvcc per source, all at
-once, and waits for them.  Nothing here runs at import: the CPU tests
-import every module on a machine without nvcc.
+once, and waits for them.  `on_device` and `raw_stream` give a wrapper
+the device and stream to launch on at little host cost.  Nothing here
+runs at import: the CPU tests import every module on a machine without
+nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,3 +106,20 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def on_device(index: int):
+    """A context that makes CUDA device `index` current for a launch; a
+    no-op when it already is (no device switch on the common path)."""
+    import torch
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream on device `index` as a cudaStream_t
+    handle, read without building a `torch.cuda.Stream` object (several
+    microseconds of host time a call)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -42,6 +42,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ray_tpu_torch.ops import _build
+
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 NEG_INF = -1e30
@@ -173,7 +175,6 @@ def _flash_fwd_reference(q, k, v, scale, causal):
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from ray_tpu_torch.ops import _build
         lib = _build.load("flash_attention")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rtt_flash_fwd.argtypes = [vp] * 5 + [ci] * 5 + [cf, ci, ci, vp]
@@ -184,6 +185,8 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.rtt_flash_fwd, lib.rtt_flash_bwd_dkdv,
                    lib.rtt_flash_bwd_dq):
             fn.restype = ci
+        lib.rtt_flash_fwd_smem_bytes.argtypes = [ci, ci]
+        lib.rtt_flash_fwd_smem_bytes.restype = ci
         lib.rtt_flash_error_string.argtypes = [ci]
         lib.rtt_flash_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -252,8 +255,9 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty(bhq, sq, dtype=torch.float32, device=q.device)
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.get_device()
+    with _build.on_device(dev):
+        stream = _build.raw_stream(dev)
         err = lib.rtt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bhq, bhq // bhkv, sq, sk, d, scale, int(causal),
@@ -281,8 +285,9 @@ def flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, scale: float,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.get_device()
+    with _build.on_device(dev):
+        stream = _build.raw_stream(dev)
         err = lib.rtt_flash_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -302,8 +307,9 @@ def flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale: float,
     bhkv, sk = k.shape[0], k.shape[1]
     dq = torch.empty_like(q)
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    dev = q.get_device()
+    with _build.on_device(dev):
+        stream = _build.raw_stream(dev)
         err = lib.rtt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bhq,

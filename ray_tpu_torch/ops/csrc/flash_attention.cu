@@ -16,39 +16,77 @@
 //   q  [B*Hq,  Sq, D]   k, v [B*Hkv, Sk, D]   f32 or bf16, contiguous
 //   o  [B*Hq,  Sq, D]   lse, delta [B*Hq, Sq] f32
 //   dq like q, dk/dv like k (the sum over the G query heads of a kv head)
-//   D in {64, 128}; Sq, Sk multiples of 64 (the wrapper asks 128);
+//   D in {64, 128}; Sq, Sk multiples of 64 (B1 in bf16: of 128; the
+//   wrapper asks 128 everywhere);
 //   causal needs Sq <= Sk.
 //
 // Design.  The TPU grid runs its last axis in order and carries the
 // softmax state (B1) or the dk/dv/dq sums (B2, B3) across it in VMEM;
 // CUDA blocks run in parallel and in no order, so that axis becomes a
-// loop inside one block:
+// loop inside one block.
+//
+// B1, bf16 (`flash_fwd_wgmma_kernel`), built for Hopper:
+//   * work tiles of (q head, 64 queries per consumer warpgroup); a
+//     persistent grid, one block per SM, walks them heaviest (last query
+//     tile) first, the G query heads of a kv head next to each other so
+//     that their K and V tiles are hits in L2; the next tile's loads
+//     overlap this one's epilogue; a last tile past Sq is not stored;
+//   * a block is three consumer warpgroups at D 64 (192-row tiles, 512
+//     threads) or two at D 128 (128 rows, 384 threads), and one producer
+//     warpgroup; setmaxnreg moves registers from the producer (24) to
+//     the consumers (160 at D 64, 240 at D 128);
+//   * the producer's one thread loads each tile's Q and keeps a 2-stage
+//     ring of 128-key K and V tiles in flight with TMA (tensor maps built
+//     on the host, passed as __grid_constant__), completion on mbarriers
+//     (full: transaction bytes; empty: one arrival per consumer warp; K
+//     and V stages released separately); boxes of 128 rows x 64 columns
+//     are one 128-byte swizzle span wide, so D 64 is one box per tile and
+//     D 128 two;
+//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K in its natural [keys, D] layout is the K-major B operand);
+//   * O += P V is wgmma with P as the register A operand (the S
+//     accumulators rounded to bf16, as the TPU kernel rounds p) and V
+//     [keys, D] as the MN-major B operand (transpose bit): p never goes
+//     through shared memory;
+//   * the online softmax runs in registers with exp2 (scale * log2 e
+//     folded in), lse goes back to natural log on the store; the causal
+//     compare runs only on a tile that crosses the diagonal (key tiles
+//     run from the last, diagonal, one down);
+//   * the exponentials (16 a cycle an SM) take about as long as the
+//     products at D 64, so they are hidden behind tensor-core work: a
+//     warpgroup issues S of key tile i with P V of tile i-1, waits for S
+//     only and runs its softmax while P V runs, and the two warpgroups
+//     take turns issuing (named barriers 1 and 2).
+// B1, f32 (`flash_fwd_kernel`), B2 and B3: 4 warps per block, each warp
+// owns 16 rows of the block's 64-row tile:
 //   B1  one block per (q head, 64-query tile), looping over key tiles;
 //   B2  one block per (kv head, 64-key tile), looping over the G query
 //       heads of the group and, for each, over the query tiles that see
 //       the key tile: dk/dv of the whole group stay in registers, so
 //       there is no per-q-head [B*Hq, Sk, D] buffer and no atomics;
 //   B3  one block per (q head, 64-query tile), looping over key tiles.
-// 4 warps per block; each warp owns 16 rows of the block's tile.  Every
-// product runs on the tensor cores for bf16 (mma.sync m16n8k16, f32
-// accumulate) and as plain f32 FMAs for f32 (no TF32).  Operands are
-// staged in shared memory rows padded by 16 bytes (no bank conflicts on
-// the fragment loads); p and ds go through shared memory in the input
+// bf16 products there run on mma.sync m16n8k16 (f32 accumulate), f32
+// products as plain FMAs (no TF32).  The f32 forward stays on this path:
+// wgmma has no f32 form, only TF32, whose 10-bit mantissa would break
+// the 1e-5 limits of the f32 checks and the f32 trainer's step-for-step
+// agreement with the plain one.  Operands are staged in shared memory
+// rows padded by 16 bytes; p and ds go through shared memory in the input
 // type, rounded where the TPU kernels round them (`.astype(dtype)` before
 // the dv/dk/o/dq products).  Both types share one accumulator layout,
-// that of mma.sync: thread (g = lane/4, t = lane%4) holds, for each
-// 8-column tile j, C[g][8j+2t..+1] and C[g+8][8j+2t..+1].
+// that of mma.sync (and of each warp's quarter of a wgmma accumulator):
+// thread (g = lane/4, t = lane%4) holds, for each 8-column tile j,
+// C[g][8j+2t..+1] and C[g+8][8j+2t..+1].
 //
 // What bounds it on an H100 (llama-1b training shapes: B 4, Hq 32, Hkv 8,
 // S 2048, D 64, causal, bf16): B1 does 2 products of 2*S*S/2*D flops per
 // head, 6.9e10 flops, ~0.07 ms at 989 TFLOP/s, against 4.2e7 bytes
 // (q, k, v, o, lse once) ~0.013 ms at 3.35 TB/s; B2 does 4 such products
 // (~0.14 ms) and B3 3 (~0.10 ms), each on ~5e7 bytes.  All three are
-// bound by operations.  This first version does not reach that bound:
-// it loads tiles synchronously (no cp.async/TMA pipeline), uses mma.sync
-// rather than wgmma, and gives causal blocks unequal work.  Making it
-// fast is later work; the times stand in PERF.md.
+// bound by operations, so the tensor cores' rate is what the design
+// chases: wgmma fed by TMA in B1; B2 and B3 still load tiles
+// synchronously and use mma.sync (later work; times in PERF.md).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -285,6 +323,530 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// B1, bf16: TMA + wgmma forward.  Persistent grid (one block per SM);
+// FwdCfg<D> consumer warpgroups of 64 query rows and one producer.
+// ---------------------------------------------------------------------------
+constexpr int kBK = 128;                 // keys per K/V tile
+constexpr int kStages = 2;               // K/V ring depth
+// Consumer warpgroups of 64 query rows each: three at D 64 (where the
+// exponentials weigh most against the products, a third warpgroup keeps
+// the tensor cores fed), two at D 128 (whose O accumulator leaves
+// registers for no third).  Plus one producer warpgroup.
+template <int D>
+struct FwdCfg {
+  static constexpr int kWG = D == 64 ? 3 : 2;
+  static constexpr int kBQ = 64 * kWG;             // query rows per tile
+  static constexpr int kWarps = 4 * kWG;           // consumer warps
+  static constexpr int kThreads = 128 * kWG + 128;
+};
+constexpr int kBox = 128 * 128;          // one 128-row x 64-column bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  The poll loop
+// lives inside the asm, so the compiler sees no divergent branch around
+// the wgmma that follow (which it would otherwise serialise).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One TMA box (box coordinates: column c0, row c1) into shared memory,
+// completion reported to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of wgmma accumulators across the
+// wait (the asm above does not name them).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// Shared-memory matrix descriptor, 128-byte swizzle (the layout TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes): start address, leading and stride
+// byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory
+// (descriptors), f32 accumulators in the wgmma layout.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs in
+// the mma.sync A layout), B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (bf16 pairs in
+// the mma.sync A layout), B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x, flush to zero
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// Named barriers 1 and 2 over the 256 consumer threads (0 is
+// __syncthreads'); a warpgroup syncs on its own and arrives on the other.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// S[64 x 128] = Q_wg K^T: both K-major in shared memory; k-step kk
+// reads 16 columns of D (32 bytes inside a 128-byte swizzle row) from
+// 64-column box kk/4 (Q's boxes are kQBox bytes apart, K's kBox).
+template <int D, int kQBox>
+__device__ __forceinline__ void issue_qk(float (&sc)[64],
+                                         const unsigned char* q_wg,
+                                         const unsigned char* k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss_n128(sc,
+                  desc_sw128(q_wg + (kk / 4) * kQBox + (kk % 4) * 32, 16,
+                             1024),
+                  desc_sw128(k_tile + (kk / 4) * kBox + (kk % 4) * 32, 16,
+                             1024),
+                  kk > 0);
+  }
+}
+
+// Work tile `tile` of the persistent forward: the heaviest (last) query
+// tiles come first, and the G query heads of a kv head sit next to each
+// other, so that their K/V tiles are hits in L2.
+// A last tile that runs past Sq loads rows it does not store.
+template <int BQ>
+struct FwdTile {
+  int bh, q0, n_kt;
+  __device__ FwdTile(int tile, int BH, int Sq, int Sk, int causal) {
+    bh = tile % BH;
+    q0 = ((Sq + BQ - 1) / BQ - 1 - tile / BH) * BQ;
+    n_kt = Sk / kBK;
+    if (causal) n_kt = min(n_kt, (Sk - Sq + q0 + BQ - 1) / kBK + 1);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int BH, int Sq, int Sk,
+                       int G, float scale, int causal) {
+  constexpr int NC = FwdCfg<D>::kWG, kBQ = FwdCfg<D>::kBQ;
+  constexpr int kConsumerWarps = FwdCfg<D>::kWarps;
+  constexpr int kQBox = kBQ * 128;         // kBQ rows x 64 columns, bf16
+  constexpr int kTile = (D / 64) * kBox;   // 128 key rows x D, bf16
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled tiles start on 1024-byte boundaries (the swizzle atom).
+  unsigned char* q_s =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* k_s = q_s + (D / 64) * kQBox;      // [kStages][kTile]
+  unsigned char* v_s = k_s + kStages * kTile;       // [kStages][kTile]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;                   // [kStages] each
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  const int n_tiles = (Sq + kBQ - 1) / kBQ * BH;
+  const int offset = Sk - Sq;
+  // Broadcast, so that the compiler knows the warp index is uniform in a
+  // warp and the role branches below are not divergent.
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumerWarps);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumerWarps);
+      mbar_init(&v_empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Each block walks tiles blockIdx.x, + gridDim.x, ...; the K/V ring's
+  // stage and phase run on across tiles (`kv` counts the ring's tiles).
+  if (warp >= kConsumerWarps) {
+    // Producer warpgroup: gives most of its registers to the consumers
+    // (24 here; 160 or 240 there, from the block's 128 or 168).  One
+    // thread loads each work tile's Q once both consumer warpgroups are
+    // done with the previous one, then its K/V tiles into the ring, last
+    // key tile first (the diagonal one under a causal mask); a K stage is
+    // refilled once both consumer warpgroups' Q K^T on it finished, a V
+    // stage once their P V did.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      int kv = 0, nt = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++nt) {
+        const FwdTile<kBQ> w(tile, BH, Sq, Sk, causal);
+        if (nt > 0) mbar_wait(q_empty, (nt - 1) & 1);
+        mbar_expect_tx(q_full, (D / 64) * kQBox);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(q_s + c * kQBox, &tm_q, c * 64, w.bh * Sq + w.q0,
+                   q_full);
+        const int kv_row0 = (w.bh / G) * Sk;
+        for (int it = 0; it < w.n_kt; ++it, ++kv) {
+          const int s = kv % kStages;
+          const uint32_t parity = (kv / kStages - 1) & 1;
+          const int row = kv_row0 + (w.n_kt - 1 - it) * kBK;
+          if (kv >= kStages) mbar_wait(&k_empty[s], parity);
+          mbar_expect_tx(&k_full[s], kTile);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(k_s + s * kTile + c * kBox, &tm_k, c * 64, row,
+                     &k_full[s]);
+          if (kv >= kStages) mbar_wait(&v_empty[s], parity);
+          mbar_expect_tx(&v_full[s], kTile);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(v_s + s * kTile + c * kBox, &tm_v, c * 64, row,
+                     &v_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns query rows q0 + 64*wg .. +63 of a work
+  // tile; in the accumulator layout thread (g, t) of warp wl holds rows
+  // 16*wl + g and +8, columns 8j + 2t, +1 of each 8-column block j.
+  //
+  // Each turn issues S = Q K^T of key tile it and O += P V of key tile
+  // it-1 (P in registers), waits for S only, and runs the softmax of tile
+  // it while P V is still on the tensor cores.  The two warpgroups take
+  // turns issuing (named barriers 1 and 2), so one's products run while
+  // the other computes exponentials.
+  if constexpr (NC == 3) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  }
+  const int wg = warp / 4, wl = warp % 4, g = lane / 4, t = lane % 4;
+  const float scale_log2 = scale * kLog2e;
+  const unsigned char* q_wg = q_s + wg * 64 * 128;
+  float acc[D / 2];
+  float sc[64];                          // S, then p, of the newest tile
+  uint32_t pa[kBK / 16][4];              // p of the tile before, bf16
+  // Running max of the raw scores, and this thread's share of the row
+  // sums (reduced over the quad at the end).
+  float m_lo, m_hi, l_lo, l_hi;
+  float al_lo, al_hi;                    // rescale of O for the newest tile
+  int n_kt = 0, q0 = 0, qpos_lo = 0, qpos_hi = 0;
+
+  // Online softmax of key tile `it` in registers on the raw scores:
+  // p = exp2(s * scale * log2 e - m * scale * log2 e), one FFMA and one
+  // ex2 per element, left in sc; the causal compare only on a tile that
+  // crosses the diagonal.
+  auto softmax = [&](int it) {
+    const int k0 = (n_kt - 1 - it) * kBK;
+    if (causal && k0 + kBK - 1 > offset + q0 + wg * 64) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) > (e < 2 ? qpos_lo : qpos_hi))
+            sc[4 * j + e] = kNegInf;
+    }
+    float mx_lo = kNegInf, mx_hi = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
+    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+    al_lo = ex2((m_lo - mn_lo) * scale_log2);
+    al_hi = ex2((m_hi - mn_hi) * scale_log2);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    // A row that has seen only masked keys so far (a 192-row tile's
+    // warpgroup can meet a key tile wholly above its diagonal) keeps
+    // m = NEG_INF; a zero bias then gives its masked scores p = 0, where
+    // fmaf(NEG_INF, c, -NEG_INF * c) would leave the unrounded product's
+    // error and overflow.  Its later alpha is 0 either way.
+    const float nb_lo = mn_lo == kNegInf ? 0.f : -mn_lo * scale_log2;
+    const float nb_hi = mn_hi == kNegInf ? 0.f : -mn_hi * scale_log2;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, nb_lo));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, nb_lo));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, nb_hi));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, nb_hi));
+      sum_lo += sc[4 * j] + sc[4 * j + 1];
+      sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l_lo = al_lo * l_lo + sum_lo;
+    l_hi = al_hi * l_hi + sum_hi;
+  };
+  // O *= alpha, and p rounded to bf16 as the register A operand of P V
+  // (the mma.sync A layout: k-step kk takes 8-column blocks 2kk, 2kk+1).
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= al_lo;
+      acc[4 * j + 1] *= al_lo;
+      acc[4 * j + 2] *= al_hi;
+      acc[4 * j + 3] *= al_hi;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+  // O += P V: V [keys, D] is the MN-major B operand (transpose bit);
+  // 64-column boxes kBox apart, 8-key groups 1024 bytes apart.
+  auto issue_pv = [&](const unsigned char* v_tile) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_tile + kk * 16 * 128, kBox, 1024);
+      if constexpr (D == 64) {
+        wgmma_rs_n64_tb(acc, pa[kk], dv);
+      } else {
+        wgmma_rs_n128_tb(acc, pa[kk], dv);
+      }
+    }
+  };
+  // Q is released once this warp's last Q K^T of the work tile is done.
+  auto release = [&](int it, int s) {
+    if (lane == 0) {
+      mbar_arrive(&k_empty[s]);
+      if (it == n_kt - 1) mbar_arrive(q_empty);
+    }
+  };
+
+  int kv = 0, nt = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++nt) {
+    const FwdTile<kBQ> w(tile, BH, Sq, Sk, causal);
+    n_kt = w.n_kt;
+    q0 = w.q0;
+    const int row_lo = q0 + wg * 64 + wl * 16 + g;
+    qpos_lo = offset + row_lo;
+    qpos_hi = qpos_lo + 8;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    m_lo = m_hi = kNegInf;
+    l_lo = l_hi = 0.f;
+
+    // First turn: S of key tile 0.
+    mbar_wait(q_full, nt & 1);
+    mbar_wait(&k_full[kv % kStages], (kv / kStages) & 1);
+    if (wg == NC - 1) named_arrive(1);   // warpgroup 0 goes first
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_qk<D, kQBox>(sc, q_wg, k_s + kv % kStages * kTile);
+    wgmma_commit();
+    named_arrive(1 + (wg + 1) % NC);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    release(0, kv % kStages);
+    softmax(0);
+    rescale_and_pack();
+
+    for (int it = 1; it < n_kt; ++it) {
+      const int s = (kv + it) % kStages, sp = (kv + it - 1) % kStages;
+      mbar_wait(&k_full[s], ((kv + it) / kStages) & 1);
+      mbar_wait(&v_full[sp], ((kv + it - 1) / kStages) & 1);
+      named_sync(1 + wg);
+      wgmma_fence();
+      issue_qk<D, kQBox>(sc, q_wg, k_s + s * kTile);
+      wgmma_commit();
+      issue_pv(v_s + sp * kTile);
+      wgmma_commit();
+      named_arrive(1 + (wg + 1) % NC);
+      wgmma_wait<1>();                   // S done; P V may still run
+      reg_fence(sc);
+      release(it, s);
+      softmax(it);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (lane == 0) mbar_arrive(&v_empty[sp]);
+      rescale_and_pack();
+    }
+
+    // Last turn: P V of the last key tile.  The last warpgroup gives no
+    // turn back, so the arrivals on each barrier match its waits.
+    const int sl = (kv + n_kt - 1) % kStages;
+    mbar_wait(&v_full[sl], ((kv + n_kt - 1) / kStages) & 1);
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_pv(v_s + sl * kTile);
+    wgmma_commit();
+    if (wg != NC - 1) named_arrive(1 + (wg + 1) % NC);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(&v_empty[sl]);
+    kv += n_kt;
+
+    const float L_lo0 = quad_sum(l_lo), L_hi0 = quad_sum(l_hi);
+    const float L_lo = L_lo0 == 0.f ? 1.f : L_lo0;
+    const float L_hi = L_hi0 == 0.f ? 1.f : L_hi0;
+    const float inv_lo = 1.f / L_lo, inv_hi = 1.f / L_hi;
+    const int64_t r = static_cast<int64_t>(w.bh) * Sq + row_lo;
+    __nv_bfloat16* o_lo = o + r * D + 2 * t;
+    __nv_bfloat16* o_hi = o_lo + 8 * D;
+    if (row_lo < Sq) {                   // rows past Sq are not stored
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(o_lo + 8 * j, acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+      if (t == 0) lse[r] = m_lo * scale + logf(L_lo);   // natural log
+    }
+    if (row_lo + 8 < Sq) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(o_hi + 8 * j, acc[4 * j + 2] * inv_hi,
+               acc[4 * j + 3] * inv_hi);
+      if (t == 0) lse[r + 8] = m_hi * scale + logf(L_hi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B2: dk, dv.  Grid (Sk/64, B*Hkv); BQ query rows per inner step.
 // ---------------------------------------------------------------------------
 template <typename T, int D, int BQ>
@@ -466,6 +1028,93 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// the library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [rows, D] bf16, row-major, read in boxes of box_rows x 64 columns
+// (128 bytes: one swizzle span) with the 128-byte swizzle.
+bool tensor_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                int64_t rows, int D, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory of the bf16 forward: alignment slack, Q and the
+// K/V ring, the mbarriers.
+constexpr int fwd_wgmma_smem(int D) {
+  return 1024 + (D / 64) * (128 * (D == 64 ? 192 : 128) + 2 * kStages * kBox) +
+         (2 + 4 * kStages) * 8;
+}
+
+template <int D>
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int BH, int G, int Sq, int Sk, float scale,
+                      int causal, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  constexpr int smem = fwd_wgmma_smem(D);
+  static_assert(fwd_wgmma_smem(D) ==
+                1024 + (D / 64) * (C::kBQ * 128 + 2 * kStages * kBox) +
+                    (2 + 4 * kStages) * 8, "shared-memory layout");
+  if (Sq % 128 || Sk % kBK) return cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  // The maps hold the tensors' addresses, so they are encoded per call
+  // (host arithmetic only) and passed by value as __grid_constant__.
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(fn, &tq, q, static_cast<int64_t>(BH) * Sq, D, C::kBQ) ||
+      !tensor_map(fn, &tk, k, static_cast<int64_t>(BH / G) * Sk, D, kBK) ||
+      !tensor_map(fn, &tv, v, static_cast<int64_t>(BH / G) * Sk, D, kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  // Persistent: one block per SM (at most one per work tile).
+  int dev = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D>
+      <<<min((Sq + C::kBQ - 1) / C::kBQ * BH, n_sm), C::kThreads, smem,
+         stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+          static_cast<float*>(lse), BH, Sq, Sk, G, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dkdv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
@@ -537,10 +1186,10 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                    : fwd<float, 128>(q, k, v, o, lse, BH, G, Sq, Sk, scale,
                                      causal, s);
   if (dtype == 1)
-    return D == 64 ? fwd<__nv_bfloat16, 64>(q, k, v, o, lse, BH, G, Sq, Sk,
-                                            scale, causal, s)
-                   : fwd<__nv_bfloat16, 128>(q, k, v, o, lse, BH, G, Sq, Sk,
-                                             scale, causal, s);
+    return D == 64 ? fwd_wgmma<64>(q, k, v, o, lse, BH, G, Sq, Sk, scale,
+                                   causal, s)
+                   : fwd_wgmma<128>(q, k, v, o, lse, BH, G, Sq, Sk, scale,
+                                    causal, s);
   return cudaErrorInvalidValue;
 }
 
@@ -591,6 +1240,12 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                                 dq, BH, G, Sq, Sk, scale,
                                                 causal, s);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) of the forward kernel for (D, dtype).
+extern "C" int rtt_flash_fwd_smem_bytes(int D, int dtype) {
+  if (dtype == 1) return D == 64 ? fwd_wgmma_smem(64) : fwd_wgmma_smem(128);
+  return (3 * kTile * (D + 4) + kTile * (kTile + 4)) * 4;
 }
 
 extern "C" const char* rtt_flash_error_string(int err) {

@@ -5,7 +5,10 @@ card (where JAX is absent, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: paged attention f32 1e-5 (summation order only), bf16 2e-2
-(bf16 output rounding plus summation order).  Flash attention uses
+(bf16 output rounding plus summation order) and chip_smoke.py's
+B4_ROW_REL on the largest relative error over (sequence, head) rows, also
+on long tables whose contexts end on partition boundaries of the split
+kernel.  Flash attention uses
 chip_smoke.py's limits: f32 1e-5 for o and 1e-4 for gradients (sums over
 whole sequences); bf16 o and gradients by their largest relative error
 over 64-row tiles of each head (`tile_rel_err`), the plain version
@@ -14,7 +17,8 @@ running in f32 from the same bf16 inputs; lse within 1e-4."""
 import pytest
 import torch
 
-from chip_smoke import BF16_TOL, F32_TOL, LSE_TOL, tile_rel_err
+from chip_smoke import (B4_ROW_REL, BF16_TOL, F32_TOL, LSE_TOL, row_rel_err,
+                        tile_rel_err)
 from ray_tpu_torch.ops import attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 
@@ -42,6 +46,10 @@ def test_paged_attention_kernel_matches_plain(dtype, H, Hkv, D, bs, W):
           + 1).reshape(B, W).to(torch.int32)
     ctx = torch.tensor([0, 1, bs + 1, W * bs, W * bs // 2, 3],
                        dtype=torch.int32, device="cuda")
+    _check_paged(q, kp, vp, bt, ctx, dtype)
+
+
+def _check_paged(q, kp, vp, bt, ctx, dtype):
     before = pa.launches
     got = pa.paged_attention(q, kp, vp, bt, ctx, impl="auto")
     want = pa.paged_attention_reference(q, kp, vp, bt, ctx)
@@ -51,6 +59,43 @@ def test_paged_attention_kernel_matches_plain(dtype, H, Hkv, D, bs, W):
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
     assert torch.all(got[0] == 0)
+    if dtype == torch.bfloat16:
+        assert row_rel_err(torch, got, want).max().item() <= B4_ROW_REL
+
+
+LONG_CASES = [  # dtype, H, Hkv, D, bs, W: tables of 64 and 22 partitions
+    (torch.bfloat16, 32, 8, 64, 16, 256),
+    (torch.float32, 64, 8, 128, 16, 256),
+    (torch.float32, 16, 2, 64, 5, 264),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,Hkv,D,bs,W", LONG_CASES)
+def test_paged_attention_kernel_long_table_partition_edges(dtype, H, Hkv,
+                                                           D, bs, W):
+    """Contexts 0, 1, on a partition boundary, one past it, one short of
+    the next, and the full table, through the partition kernel and the
+    merge kernel; twice, so a second call over the same inputs gives
+    the same result again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    part_blocks, n_parts = pa.split_plan(W, bs)
+    T = part_blocks * bs
+    assert n_parts > 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    B = 7
+    nb = B * W + 1
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(nb, bs, Hkv, D, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nb, bs, Hkv, D, generator=gen, device="cuda").to(dtype)
+    bt = (torch.randperm(nb - 1, generator=gen, device="cuda")[:B * W]
+          + 1).reshape(B, W).to(torch.int32)
+    ctx = torch.tensor([0, 1, T, T + 1, 2 * T - 1, 5 * T, W * bs],
+                       dtype=torch.int32, device="cuda")
+    _check_paged(q, kp, vp, bt, ctx, dtype)
+    _check_paged(q, kp, vp, bt, ctx, dtype)
 
 
 FLASH_CASES = [  # dtype, B, Hq, Hkv, Sq, Sk, D, causal, nonzero dlse
@@ -98,6 +143,34 @@ def test_flash_kernels_match_plain(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
             torch.testing.assert_close(got, want, atol=tol, rtol=tol)
         else:
             assert tile_rel_err(torch, got, want) <= BF16_TOL["tile_rel"]
+
+
+@pytest.mark.cuda
+def test_flash_fwd_kernel_at_training_shapes_launches_once():
+    """B1 at llama-1b's training shapes (B 4, Hq 32, Hkv 8, S 2048, D 64,
+    causal, bf16): one call is one launch, and o and lse agree with the
+    plain forward at chip_smoke.py's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    B, Hq, Hkv, S, D = 4, 32, 8, 2048, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(B * Hq, S, D), rnd(B * Hkv, S, D), rnd(B * Hkv, S, D)
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, D ** -0.5, True)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert all(fa.launches[n] == before[n] for n in before
+               if n != "flash_fwd")
+    o_ref, lse_ref = fa._flash_fwd_reference(q.float(), k.float(),
+                                             v.float(), D ** -0.5, True)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    assert tile_rel_err(torch, o, o_ref) <= BF16_TOL["tile_rel"]
 
 
 @pytest.mark.cuda
