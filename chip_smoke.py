@@ -29,10 +29,13 @@ script exits non-zero without a result line:
                B3 (dq) against their plain versions at the training
                shapes (llama-1b: B 4, Hq 32, Hkv 8, S 2048, D 64, causal,
                bf16) and in f32, D 128, groups 1 and 8, non-causal and
-               cross-length causal cases, some with a nonzero dlse
+               cross-length causal cases, fewer work tiles than SMs and
+               counts no multiple of 132, some with a nonzero dlse
                (tolerances at F32_TOL and BF16_TOL; each bf16 case also
                shows that its limits reject a result with one tile pair
-               left out); kernel / plain / SDPA times;
+               left out); B2 and B3 repeated give the same bits; kernel /
+               plain / SDPA times, `_delta` and the whole backward
+               against SDPA's backward, also at D 128;
   6. train   — CompiledTrainStep on llama-1b at full width (16 layers,
                bf16, batch 4 x 2048, remat "names", AdamW), random weights
                from seed 0 and one fixed batch: 2 warm-up and 6 timed
@@ -294,6 +297,10 @@ FLASH_CASES = [
     ("noncausal-f32", "float32", 1, 4, 4, 256, 384, 64, False, False),
     ("cross", "float32", 2, 8, 2, 256, 1024, 64, True, True),
     ("cross-bf16", "bfloat16", 2, 8, 2, 256, 1024, 128, True, False),
+    # Fewer work tiles than the card has SMs (B2: 2, B3: 8), and counts
+    # that are no multiple of 132 (B2: 60, B3: 180).
+    ("few-tiles", "bfloat16", 1, 4, 1, 256, 256, 128, True, False),
+    ("ragged-tiles", "bfloat16", 3, 12, 4, 640, 640, 64, True, True),
 ]
 # f32: summation order only; o within 1e-5 and the gradients within
 # 1e-4 (atol = rtol).  bf16: o and each gradient by `tile_rel_err`, the
@@ -456,7 +463,10 @@ def phase_flash(torch, fa):
 
 
 def flash_timing(torch, fa, errs):
-    """Kernel, plain and SDPA times at the training shapes (FLASH_MAIN)."""
+    """Kernel, plain and SDPA times at the training shapes (FLASH_MAIN);
+    `_delta`'s own time and the whole backward's (`_delta` + B2 + B3, one
+    call) against SDPA's backward; B2 and B3 called twice on the same
+    inputs must give the same bits."""
     name, dtn, B, Hq, Hkv, Sq, Sk, D, causal, _ = FLASH_MAIN
     dtype = getattr(torch, dtn)
     scale = 1.0 / D ** 0.5
@@ -464,6 +474,7 @@ def flash_timing(torch, fa, errs):
                                   False, seed=7)
     o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
     delta = fa._delta(o, do, None)
+    check_bwd_repeats(torch, fa, q, k, v, do, lse, delta, scale, causal)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     n = 20
     ms = {
@@ -473,6 +484,11 @@ def flash_timing(torch, fa, errs):
             q, k, v, do, lse, delta, scale, causal), flush, n=n),
         "flash_bwd_dq": time_ms(torch, lambda: fa.flash_bwd_dq_kernel(
             q, k, v, do, lse, delta, scale, causal), flush, n=n),
+    }
+    bwd = {
+        "delta": time_ms(torch, lambda: fa._delta(o, do, None), flush, n=n),
+        "backward": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
+            q, k, v, o, lse, do, None, scale, causal), flush, n=n),
     }
     plain_ms = {
         "flash_fwd": time_ms(torch, lambda: fa._flash_fwd_reference(
@@ -486,16 +502,12 @@ def flash_timing(torch, fa, errs):
     # Library yardsticks (never called by the port): SDPA forward, and
     # its backward (dq, dk, dv together) through autograd.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4 = q.reshape(B, Hq, Sq, D).detach().requires_grad_()
-    k4 = k.reshape(B, Hkv, Sk, D).detach().requires_grad_()
-    v4 = v.reshape(B, Hkv, Sk, D).detach().requires_grad_()
-    do4 = do.reshape(B, Hq, Sq, D)
     with torch.no_grad():
-        lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=causal,
-                                              enable_gqa=True), flush, n=n)
-    out = sdpa(q4, k4, v4, is_causal=causal, enable_gqa=True)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do4, retain_graph=True), flush, n=n)
+        lib_fwd = time_ms(torch, lambda: sdpa(
+            q.reshape(B, Hq, Sq, D), k.reshape(B, Hkv, Sk, D),
+            v.reshape(B, Hkv, Sk, D), is_causal=causal, enable_gqa=True),
+            flush, n=n)
+    lib_bwd = sdpa_bwd_ms(torch, q, k, v, do, B, causal, flush, n)
     pairs, nbytes = attention_work(B, Hq, Hkv, Sq, Sk, D, causal, 2)
     flops = {"flash_fwd": 2 * 2 * D * pairs,
              "flash_bwd_dkdv": 4 * 2 * D * pairs,
@@ -509,8 +521,57 @@ def flash_timing(torch, fa, errs):
                       "bound_ms": b_ms, "bound_by": b_by,
                       "flops": flops[kname], "bytes": nbytes[kname],
                       "max_abs_err": errs.get(kname)}
+    out["flash_bwd_main"] = {
+        "shape": [B, Hq, Hkv, Sq, D], "bits_equal_on_repeat": True,
+        **backward_summary(ms, bwd, lib_bwd)}
     out["flash_fwd_d128"] = flash_fwd_d128_timing(torch, fa, flush)
+    out["flash_bwd_d128"] = flash_bwd_d128_timing(torch, fa, flush)
     return out
+
+
+def check_bwd_repeats(torch, fa, q, k, v, do, lse, delta, scale, causal):
+    """B2 and B3 twice on the same inputs: the same bits (no atomics)."""
+    first = (fa.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, scale,
+                                      causal)
+             + (fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                       causal),))
+    again = (fa.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, scale,
+                                      causal)
+             + (fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                       causal),))
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("B2/B3 gave different bits on a repeated call")
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, B, causal, flush, n):
+    """SDPA's backward (dq, dk, dv together) through autograd, from flat
+    inputs: the library yardstick of B2 + B3."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.reshape(B, -1, *t.shape[1:]).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = sdpa(q4, k4, v4, is_causal=causal, enable_gqa=True)
+    do4 = do.reshape(out.shape)
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), flush, n=n)
+
+
+def backward_summary(ms, bwd, lib):
+    """`_delta`, the sum `_delta` + B2 + B3 and the whole backward (one
+    call), both ways, against SDPA's backward."""
+    parts = (bwd["delta"], ms["flash_bwd_dkdv"], ms["flash_bwd_dq"])
+    total = {key: sum(p[key] for p in parts) for key in ("ms", "device_ms")}
+    return {"delta_ms": bwd["delta"]["ms"],
+            "delta_device_ms": bwd["delta"]["device_ms"],
+            "sum_ms": total["ms"], "sum_device_ms": total["device_ms"],
+            "backward_ms": bwd["backward"]["ms"],
+            "backward_device_ms": bwd["backward"]["device_ms"],
+            "backward_host_ms": bwd["backward"]["host_ms"],
+            "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+            "sum_ratio_to_library": total["ms"] / lib["ms"],
+            "sum_device_ratio_to_library": total["device_ms"]
+            / lib["device_ms"],
+            "backward_device_ratio_to_library": bwd["backward"]["device_ms"]
+            / lib["device_ms"]}
 
 
 def flash_fwd_d128_timing(torch, fa, flush):
@@ -533,6 +594,37 @@ def flash_fwd_d128_timing(torch, fa, flush):
             "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
             "ratio_to_library": kern["ms"] / lib["ms"],
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def flash_bwd_d128_timing(torch, fa, flush):
+    """B2, B3 and `_delta` at head dim 128 (the shapes of
+    `flash_fwd_d128_timing`), each alone and as one backward, against
+    SDPA's backward from autograd."""
+    B, Hq, Hkv, S, D = 4, 16, 4, 2048, 128
+    q, k, v, do, _ = flash_inputs(torch, torch.bfloat16, B, Hq, Hkv, S, S,
+                                  D, False, seed=9)
+    scale = 1.0 / D ** 0.5
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, True)
+    delta = fa._delta(o, do, None)
+    ms = {"flash_bwd_dkdv": time_ms(torch, lambda: fa.flash_bwd_dkdv_kernel(
+              q, k, v, do, lse, delta, scale, True), flush, n=20),
+          "flash_bwd_dq": time_ms(torch, lambda: fa.flash_bwd_dq_kernel(
+              q, k, v, do, lse, delta, scale, True), flush, n=20)}
+    bwd = {"delta": time_ms(torch, lambda: fa._delta(o, do, None), flush,
+                            n=20),
+           "backward": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
+               q, k, v, o, lse, do, None, scale, True), flush, n=20)}
+    lib = sdpa_bwd_ms(torch, q, k, v, do, B, True, flush, 20)
+    pairs, nbytes = attention_work(B, Hq, Hkv, S, S, D, True, 2)
+    out = {"shape": [B, Hq, Hkv, S, D]}
+    for kname, products in (("flash_bwd_dkdv", 4), ("flash_bwd_dq", 3)):
+        b_ms, b_by = bound(products * 2 * D * pairs, nbytes[kname])
+        out[kname] = {"ms": ms[kname]["ms"],
+                      "device_ms": ms[kname]["device_ms"],
+                      "host_ms": ms[kname]["host_ms"],
+                      "bound_ms": b_ms, "bound_by": b_by}
+    out.update(backward_summary(ms, bwd, lib))
+    return out
 
 
 def llama_kwargs(torch, n_layers=None, dtype=None):
@@ -871,6 +963,10 @@ def train_profile(torch, step, state, batch, wall_s):
         return sum(e.self_device_time_total for e in kernels
                    if tag in e.key) / 1e3
 
+    def per_launch_ms(tag):
+        count = sum(e.count for e in kernels if tag in e.key)
+        return dev_ms(tag) / count if count else None
+
     gemm_ms = sum(e.self_device_time_total for e in kernels
                   if any(t in e.key.lower() for t in
                          ("gemm", "nvjet", "cutlass", "sm90_xmma")))
@@ -879,8 +975,11 @@ def train_profile(torch, step, state, batch, wall_s):
             "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
             if busy_us else None,
             "flash_fwd_device_ms": dev_ms("flash_fwd"),
-            "flash_bwd_dkdv_device_ms": dev_ms("flash_bwd_dkdv_kernel"),
-            "flash_bwd_dq_device_ms": dev_ms("flash_bwd_dq_kernel"),
+            "flash_bwd_dkdv_device_ms": dev_ms("flash_bwd_dkdv"),
+            "flash_bwd_dq_device_ms": dev_ms("flash_bwd_dq"),
+            "flash_device_ms_per_launch": {
+                tag: per_launch_ms(tag) for tag in (
+                    "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")},
             "gemm_device_ms": gemm_ms / 1e3,
             "kernel_launches_profiled": sum(e.count for e in kernels),
             "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
@@ -975,6 +1074,11 @@ def main() -> int:
         for dt, code in (("f32", 0), ("bf16", 1)):
             for d in (64, 128):
                 smem[f"{kernel}<{dt},{d}>"] = fn(d, code)
+    for kernel, which in (("flash_bwd_dkdv_wgmma_kernel", 0),
+                          ("flash_bwd_dq_wgmma_kernel", 1)):
+        for d in (64, 128):
+            smem[f"{kernel}<{d}>"] = \
+                fa._library().rtt_flash_bwd_smem_bytes(d, which)
     emit({"phase": "build", "seconds": time.time() - t0,
           "per_source_s": took, "ptxas": ptxas,
           "dynamic_smem_bytes": smem})

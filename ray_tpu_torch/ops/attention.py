@@ -31,7 +31,8 @@ and logsumexp in f32 — all as in the JAX package.
   `attention_reference_with_lse` on any device.
 
 `block_q`/`block_k` keep their role in validation (`_pick_block`); the
-CUDA tiles are the kernels' own (64 rows), chosen for the H100.
+CUDA tiles are the kernels' own, chosen for the H100 (64 to 192 rows;
+the bf16 kernels are TMA + wgmma designs, see the source).
 """
 
 from __future__ import annotations
@@ -101,8 +102,10 @@ def attention_reference_with_lse(q, k, v, causal: bool = True,
 
 
 def _delta(o, do, dlse):
-    """delta = rowsum(dO * O) - dlse, f32 [B*Hq, Sq] (dlse None = 0)."""
-    delta = (do.float() * o.float()).sum(-1)
+    """delta = rowsum(dO * O) - dlse, f32 [B*Hq, Sq] (dlse None = 0).
+    `o` is promoted inside the product (exactly, as `.float()` would),
+    which saves a pass over an f32 copy of it."""
+    delta = (do.float() * o).sum(-1)
     return delta if dlse is None else delta - dlse.float()
 
 
@@ -185,8 +188,10 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.rtt_flash_fwd, lib.rtt_flash_bwd_dkdv,
                    lib.rtt_flash_bwd_dq):
             fn.restype = ci
-        lib.rtt_flash_fwd_smem_bytes.argtypes = [ci, ci]
-        lib.rtt_flash_fwd_smem_bytes.restype = ci
+        for fn in (lib.rtt_flash_fwd_smem_bytes,
+                   lib.rtt_flash_bwd_smem_bytes):
+            fn.argtypes = [ci, ci]
+            fn.restype = ci
         lib.rtt_flash_error_string.argtypes = [ci]
         lib.rtt_flash_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -20,6 +20,10 @@ CASES = {
     "causal": (1, 4, 2, 256, 256, 64, True),
     "noncausal": (1, 4, 2, 256, 256, 64, False),
     "cross_causal": (1, 4, 2, 128, 256, 64, True),
+    # Where the bf16 kernels branch: head dim 128 with a group of 4 (a
+    # 64-query tile in B2, 64-key tiles in B3), and a group of 1.
+    "d128_group4": (1, 4, 1, 128, 256, 128, True),
+    "group1": (1, 2, 2, 256, 256, 64, True),
 }
 DLSE = ("zero", "nonzero")
 BLOCK = 128

@@ -105,6 +105,10 @@ FLASH_CASES = [  # dtype, B, Hq, Hkv, Sq, Sk, D, causal, nonzero dlse
     (torch.float32, 1, 4, 4, 256, 384, 128, False, False),
     (torch.bfloat16, 2, 4, 2, 256, 1024, 64, True, True),
     (torch.float32, 1, 4, 2, 128, 512, 64, True, False),
+    # Fewer work tiles than the card has SMs (B2: 2, B3: 8), and counts
+    # that are no multiple of 132 (B2: 60, B3: 180).
+    (torch.bfloat16, 1, 4, 1, 256, 256, 128, True, False),
+    (torch.bfloat16, 3, 12, 4, 640, 640, 64, True, True),
 ]
 
 
@@ -143,6 +147,35 @@ def test_flash_kernels_match_plain(dtype, B, Hq, Hkv, Sq, Sk, D, causal,
             torch.testing.assert_close(got, want, atol=tol, rtol=tol)
         else:
             assert tile_rel_err(torch, got, want) <= BF16_TOL["tile_rel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_kernels_repeat_bit_for_bit(D):
+    """B2 and B3 in bf16 called twice on the same inputs give the same
+    bits: the GQA sum stays in registers, with no atomics, and a
+    persistent block's tiles do not change the order of any sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    B, Hq, Hkv, S = 3, 12, 4, 640
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v = rnd(B * Hq, S, D), rnd(B * Hkv, S, D), rnd(B * Hkv, S, D)
+    do = rnd(B * Hq, S, D)
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, True)
+    delta = fa._delta(o, do, None)
+    runs = [fa.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, scale, True)
+            + (fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                      True),) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
