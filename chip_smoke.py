@@ -44,9 +44,24 @@ script exits non-zero without a result line:
   7. train_e2e — the same widths at 2 layers in f32: the kernel and the
                plain-attention trainers agree step for step and in each
                parameter's change.
+  8. train_moe — CompiledTrainStep on mixtral-8x7b at full width, depth
+               cut to MOE_LAYERS (bf16, batch 4 x 2048, remat "names",
+               Adafactor): B1-B3 at D 128 once per layer per step; finite
+               loss near ln(vocab) that falls; dropped-pair share; a
+               profile of one step (no MFU: 6N counts all 8 experts);
+  9. train_moe_e2e — the same widths at 1 layer in f32: the kernel and
+               plain-attention trainers agree over 2 Adafactor steps;
+ 10. serve_lora — PagedBatcher on llama-1b at full width with three
+               rank-16 LoRA adapters (max_resident_models=2): 16 requests
+               that swap models, a same-model re-send that must hit, a
+               cross-model shared prefix that must not;
+ 11. serve_lora_e2e — 2 layers in f32: the multiplexed engine's tokens
+               equal single-model engines on merge_adapter's weights;
+               merge_adapter on the card against a float64 merge.
 
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its main
-path — the serving run for B4, the training run for B1-B3 — max error,
+paths — serve and serve_lora for B4, train and train_moe for B1-B3, each
+counted from 0 just before its path and read just after — max error,
 times two ways (see `time_ms`), the host's time to issue one call, the
 card's bound, the kernel / library ratio), the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device":
@@ -301,7 +316,11 @@ FLASH_CASES = [
     # that are no multiple of 132 (B2: 60, B3: 180).
     ("few-tiles", "bfloat16", 1, 4, 1, 256, 256, 128, True, False),
     ("ragged-tiles", "bfloat16", 3, 12, 4, 640, 640, 64, True, True),
+    # Mixtral's attention at the MoE training shapes.
+    ("mixtral", "bfloat16", 4, 32, 8, 2048, 2048, 128, True, False),
 ]
+D128_SHAPE = (4, 16, 4, 2048, 128)          # B, Hq, Hkv, S, D
+MIXTRAL_SHAPE = (4, 32, 8, 2048, 128)
 # f32: summation order only; o within 1e-5 and the gradients within
 # 1e-4 (atol = rtol).  bf16: o and each gradient by `tile_rel_err`, the
 # largest relative error over 64-row tiles of each head (the plain
@@ -526,6 +545,10 @@ def flash_timing(torch, fa, errs):
         **backward_summary(ms, bwd, lib_bwd)}
     out["flash_fwd_d128"] = flash_fwd_d128_timing(torch, fa, flush)
     out["flash_bwd_d128"] = flash_bwd_d128_timing(torch, fa, flush)
+    out["flash_fwd_mixtral"] = flash_fwd_d128_timing(torch, fa, flush,
+                                                     MIXTRAL_SHAPE)
+    out["flash_bwd_mixtral"] = flash_bwd_d128_timing(torch, fa, flush,
+                                                     MIXTRAL_SHAPE)
     return out
 
 
@@ -574,10 +597,11 @@ def backward_summary(ms, bwd, lib):
             / lib["device_ms"]}
 
 
-def flash_fwd_d128_timing(torch, fa, flush):
-    """B1 at head dim 128 (B 4, Hq 16, Hkv 4, S 2048, causal, bf16: the
-    FLOPs of the training shapes) against SDPA's forward."""
-    B, Hq, Hkv, S, D = 4, 16, 4, 2048, 128
+def flash_fwd_d128_timing(torch, fa, flush, shape=D128_SHAPE):
+    """B1 at head dim 128 (default B 4, Hq 16, Hkv 4, S 2048, causal,
+    bf16: the FLOPs of the llama-1b training shapes; or Mixtral's)
+    against SDPA's forward."""
+    B, Hq, Hkv, S, D = shape
     q, k, v, _, _ = flash_inputs(torch, torch.bfloat16, B, Hq, Hkv, S, S,
                                  D, False, seed=8)
     scale = 1.0 / D ** 0.5
@@ -589,18 +613,21 @@ def flash_fwd_d128_timing(torch, fa, flush):
                                       enable_gqa=True), flush, n=20)
     pairs, nbytes = attention_work(B, Hq, Hkv, S, S, D, True, 2)
     b_ms, b_by = bound(2 * 2 * D * pairs, nbytes["flash_fwd"])
+    plain = time_ms(torch, lambda: fa._flash_fwd_reference(
+        q, k, v, scale, True), flush, n=5, warmup=2)
     return {"shape": [B, Hq, Hkv, S, D], "ms": kern["ms"],
             "device_ms": kern["device_ms"], "host_ms": kern["host_ms"],
+            "plain_ms": plain["ms"], "plain_device_ms": plain["device_ms"],
             "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
             "ratio_to_library": kern["ms"] / lib["ms"],
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def flash_bwd_d128_timing(torch, fa, flush):
+def flash_bwd_d128_timing(torch, fa, flush, shape=D128_SHAPE):
     """B2, B3 and `_delta` at head dim 128 (the shapes of
     `flash_fwd_d128_timing`), each alone and as one backward, against
     SDPA's backward from autograd."""
-    B, Hq, Hkv, S, D = 4, 16, 4, 2048, 128
+    B, Hq, Hkv, S, D = shape
     q, k, v, do, _ = flash_inputs(torch, torch.bfloat16, B, Hq, Hkv, S, S,
                                   D, False, seed=9)
     scale = 1.0 / D ** 0.5
@@ -615,6 +642,14 @@ def flash_bwd_d128_timing(torch, fa, flush):
            "backward": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
                q, k, v, o, lse, do, None, scale, True), flush, n=20)}
     lib = sdpa_bwd_ms(torch, q, k, v, do, B, True, flush, 20)
+    plain = {"flash_bwd_dkdv": time_ms(
+                 torch, lambda: fa.flash_bwd_dkdv_reference(
+                     q, k, v, do, lse, delta, scale, True), flush, n=3,
+                 warmup=1),
+             "flash_bwd_dq": time_ms(
+                 torch, lambda: fa.flash_bwd_dq_reference(
+                     q, k, v, do, lse, delta, scale, True), flush, n=3,
+                 warmup=1)}
     pairs, nbytes = attention_work(B, Hq, Hkv, S, S, D, True, 2)
     out = {"shape": [B, Hq, Hkv, S, D]}
     for kname, products in (("flash_bwd_dkdv", 4), ("flash_bwd_dq", 3)):
@@ -622,14 +657,15 @@ def flash_bwd_d128_timing(torch, fa, flush):
         out[kname] = {"ms": ms[kname]["ms"],
                       "device_ms": ms[kname]["device_ms"],
                       "host_ms": ms[kname]["host_ms"],
+                      "plain_ms": plain[kname]["ms"],
                       "bound_ms": b_ms, "bound_by": b_by}
     out.update(backward_summary(ms, bwd, lib))
     return out
 
 
-def llama_kwargs(torch, n_layers=None, dtype=None):
+def preset_kwargs(torch, n_layers=None, dtype=None, preset="llama-1b"):
     from ray_tpu_torch.models.transformer import PRESETS
-    base = PRESETS["llama-1b"]
+    base = PRESETS[preset]
     kw = {f.name: getattr(base, f.name) for f in dataclasses.fields(base)}
     if n_layers is not None:
         kw["n_layers"] = n_layers
@@ -681,7 +717,7 @@ def check_request(req, vocab, max_new):
 def phase_serve(torch, pa):
     from ray_tpu_torch.models.transformer import num_params
     from ray_tpu_torch.serve.llm import LLMDeployment
-    kw = llama_kwargs(torch, dtype=torch.bfloat16)
+    kw = preset_kwargs(torch, dtype=torch.bfloat16)
     t0 = time.time()
     dep = LLMDeployment(kw, seed=0, **ENGINE)
     bat = dep.batcher
@@ -816,7 +852,7 @@ def phase_profile(torch, params, cfg):
 def phase_e2e(torch, pa):
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.serve.llm import PagedBatcher
-    kw = llama_kwargs(torch, n_layers=2, dtype=torch.float32)
+    kw = preset_kwargs(torch, n_layers=2, dtype=torch.float32)
     cfg = transformer.TransformerConfig(**kw)
     params = transformer.init_params(cfg, seed=1, device="cuda")
     rng = np.random.RandomState(1)
@@ -865,9 +901,9 @@ def phase_e2e(torch, pa):
 TRAIN = dict(batch=4, seq=2048, warmup=2, timed=6)
 
 
-def train_cfg(torch, n_layers=None, dtype=None, **over):
+def train_cfg(torch, n_layers=None, dtype=None, preset="llama-1b", **over):
     from ray_tpu_torch.models.transformer import TransformerConfig
-    kw = llama_kwargs(torch, n_layers=n_layers, dtype=dtype)
+    kw = preset_kwargs(torch, n_layers=n_layers, dtype=dtype, preset=preset)
     kw.update(over)
     return TransformerConfig(**kw)
 
@@ -1047,6 +1083,489 @@ def phase_train_e2e(torch, fa):
     return out
 
 
+# -- MoE training (mixtral-8x7b, Adafactor) -----------------------------------
+# Depth cut from 32 layers to MOE_LAYERS: at 32 the f32 weights and their
+# f32 gradients alone take ~374 GB; at 4 layers 6.07e9 parameters, ~48.6 GB.
+MOE_LAYERS = 4
+MOE_TRAIN = dict(batch=4, seq=2048, warmup=2, timed=6)
+
+
+class RouteLog:
+    """Wraps `transformer._moe_route` while entered: records each call's
+    dropped-pair share and top-k experts (device tensors; read after)."""
+
+    def __init__(self, tr):
+        self.tr, self.drops, self.experts = tr, [], []
+
+    def __enter__(self):
+        self.orig = self.tr._moe_route
+
+        def logged(cfg, ht, w_router):
+            out = self.orig(cfg, ht, w_router)
+            slots, cap = out[3], out[4]
+            self.drops.append(
+                (slots == cfg.moe_experts * cap).float().mean().detach())
+            self.experts.append(out[2].detach().sort(-1).values)
+            return out
+
+        self.tr._moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.tr._moe_route = self.orig
+
+    def drop_share(self):
+        return (sum(d.item() for d in self.drops) / len(self.drops)
+                if self.drops else None)
+
+
+def phase_train_moe(torch, fa):
+    """CompiledTrainStep on mixtral-8x7b at full width (vocab 32,000,
+    d_model 4096, 32 heads / 8 kv heads, D 128, d_ff 14,336, 8 experts,
+    top-2, capacity 1.25, aux 0.01), MOE_LAYERS layers, bf16 compute, f32
+    parameters, seq 2048, remat "names", xent_chunk 2048, Adafactor
+    (warmup 2, total 1000); one fixed batch of 4 x 2049 tokens from numpy
+    seed 0: 2 warm-up and 6 timed steps, then one profiled step."""
+    import math
+    from ray_tpu_torch.models import transformer as tr
+    from ray_tpu_torch.models.transformer import num_params
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer)
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    cfg = train_cfg(torch, MOE_LAYERS, torch.bfloat16, "mixtral-8x7b",
+                    max_seq=S, remat=True, remat_policy="names",
+                    xent_chunk=2048)
+    step = CompiledTrainStep(cfg, optimizer=make_optimizer(
+        kind="adafactor", warmup_steps=2, total_steps=1000))
+    t0 = time.time()
+    state = step.init_state(seed=0)
+    batch = step.shard_batch(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    n_steps = MOE_TRAIN["warmup"] + MOE_TRAIN["timed"]
+    losses, auxes, totals, norms, step_s, per_step = [], [], [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    with RouteLog(tr) as log:
+        for _ in range(n_steps):
+            before = dict(fa.launches)
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())          # syncs
+            step_s.append(time.perf_counter() - t)
+            auxes.append(m["moe_aux"].item())
+            totals.append(m["total_loss"].item())
+            norms.append(m["grad_norm"].item())
+            per_step.append({n: fa.launches[n] - before[n] for n in before})
+    launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [i for i, d in enumerate(per_step)
+           if any(c != cfg.n_layers for c in d.values())]
+    if bad:
+        raise AssertionError(f"flash launches per step {per_step}: every "
+                             f"step must launch each kernel {cfg.n_layers}"
+                             " times (once per layer, no remat re-run)")
+    if not all(math.isfinite(x) for x in losses + totals + norms):
+        raise AssertionError(f"non-finite loss/grad_norm: {totals} "
+                             f"{norms}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
+                             f"of ln(vocab) = {ln_v}")
+    if any(abs(t - (x + cfg.moe_aux_weight * a)) > 1e-4 * abs(t)
+           for t, x, a in zip(totals, losses, auxes)):
+        raise AssertionError(f"total_loss != loss + 0.01 aux: {totals} "
+                             f"{losses} {auxes}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{totals}")
+    timed = sorted(step_s[MOE_TRAIN["warmup"]:])
+    p50 = statistics.median(timed)
+    out = {"phase": "train_moe", "model": "mixtral-8x7b",
+           "layers": cfg.n_layers, "dtype": "bfloat16",
+           "params": num_params(state.params), "batch": B, "seq": S,
+           "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "remat_policy": cfg.remat_policy, "xent_chunk": cfg.xent_chunk,
+           "optimizer": "adafactor (optax defaults) lr 3e-4 warmup 2 "
+                        "total 1000",
+           "setup_s": setup_s, "losses": losses, "moe_aux": auxes,
+           "total_losses": totals, "ln_vocab": ln_v, "grad_norms": norms,
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_p50": p50 * 1e3,
+           "tokens_per_s": B * S / p50,
+           "mfu": None, "mfu_why_not": "flops_per_token is the JAX "
+           "package's 6N over all parameters, which counts all 8 experts "
+           "where 2 run per token",
+           "dropped_pair_share": log.drop_share(),
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": per_step[-1]}
+    profile = moe_profile(torch, tr, step, state, batch, p50)
+    del state, step, batch
+    return out, launches, profile
+
+
+def moe_profile(torch, tr, step, state, batch, wall_s):
+    """Where one MoE training step's device time goes (torch.profiler;
+    wall time is the timed steps' median, without the profiler): the
+    flash kernels per launch, GEMMs, MoE dispatch and combine (their
+    forward, recompute and backward index kernels), the optimizer's span
+    on the device."""
+    from torch.profiler import record_function
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    opt = step.optimizer
+    orig = opt.update_
+
+    def traced(*a, **k):
+        with record_function("rtt_optimizer"):
+            return orig(*a, **k)
+
+    opt.update_ = traced
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            state, m = step(state, batch)
+            m["loss"].item()
+            torch.cuda.synchronize()
+    finally:
+        del opt.update_
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # The annotation's range on the device is not a kernel.
+    kernels = [e for e in events
+               if e.device_type == cuda and e.self_device_time_total > 0
+               and e.key != "rtt_optimizer"]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    wall_ms = wall_s * 1e3
+
+    def dev_ms(tag):
+        return sum(e.self_device_time_total for e in kernels
+                   if tag in e.key) / 1e3
+
+    def launches(tag):
+        return sum(e.count for e in kernels if tag in e.key)
+
+    gemm_us = sum(e.self_device_time_total for e in kernels
+                  if any(t in e.key.lower() for t in
+                         ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+    index_ops = ("aten::index", "aten::index_put_",
+                 "aten::_index_put_impl_")
+    dispatch_us = sum(e.self_device_time_total for e in events
+                      if e.key in index_ops)
+    # The optimizer's range on the device: its device time where the
+    # device idles little (see device_idle_share).
+    opt_span_us = sum(e.self_device_time_total for e in events
+                      if e.key == "rtt_optimizer" and e.device_type == cuda)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    tags = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    return {"phase": "train_moe_profile", "step_wall_ms": wall_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "device_idle_share": (1 - busy_us / 1e3 / wall_ms)
+            if busy_us else None,
+            "flash_launches": {t: launches(t) for t in tags},
+            "flash_device_ms_per_launch": {
+                t: dev_ms(t) / launches(t) if launches(t) else None
+                for t in tags},
+            "gemm_device_ms": gemm_us / 1e3,
+            "moe_dispatch_combine_device_ms": dispatch_us / 1e3,
+            "optimizer_span_ms": opt_span_us / 1e3,
+            "kernel_launches_profiled": sum(e.count for e in kernels),
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
+
+
+def phase_train_moe_e2e(torch, fa):
+    """mixtral-8x7b widths at 1 layer in f32, batch 1 x 512, 2 Adafactor
+    steps (lr 1e-3, warmup 1): the kernel trainer (attn_impl "flash": the
+    f32 FMA kernels of B1-B3 at D 128) and the plain one ("reference")
+    from the same parameters and batch agree as `phase_train_e2e` asks
+    (loss, total loss and grad norm to rtol 1e-4; each parameter's change
+    to relative norm 1e-3); the tokens whose top-2 expert sets differ are
+    counted."""
+    from ray_tpu_torch.models import transformer as tr
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer, _leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, steps = 1, 512, 2
+    base = train_cfg(torch, 1, torch.float32, "mixtral-8x7b", max_seq=S,
+                     remat=True, remat_policy="names", xent_chunk=512)
+    params = init_params(base, seed=1, device="cuda")
+    tokens = np.random.RandomState(1).randint(0, base.vocab_size,
+                                              (B, S + 1))
+    runs = {}
+    for impl in ("flash", "reference"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        step = CompiledTrainStep(cfg, optimizer=make_optimizer(
+            kind="adafactor", learning_rate=1e-3, warmup_steps=1,
+            total_steps=100))
+        state = step.init_state(params=params)
+        batch = step.shard_batch(tokens)
+        for name in fa.launches:
+            fa.launches[name] = 0
+        metrics = []
+        with RouteLog(tr) as log:
+            for _ in range(steps):
+                state, m = step(state, batch)
+                metrics.append((m["loss"].item(), m["total_loss"].item(),
+                                m["grad_norm"].item()))
+        runs[impl] = (metrics, dict(fa.launches),
+                      [p.detach() for p in _leaves(state.params)],
+                      log.experts, log.drop_share())
+        del state, step
+    (km, kl, kp, ke, kd), (rm, rl, rp, re_, rd) = (runs["flash"],
+                                                   runs["reference"])
+    if any(v != steps * base.n_layers for v in kl.values()) or \
+            any(rl.values()):
+        raise AssertionError(f"launches: kernel engine {kl}, plain engine "
+                             f"{rl}")
+    metric_err = max(abs(a - b) / abs(b) for x, y in zip(km, rm)
+                     for a, b in zip(x, y))
+    change = [(b - p0).norm().item() for b, p0 in zip(rp, _leaves(params))]
+    change_err = [(a - b).norm().item() / c
+                  for a, b, c in zip(kp, rp, change)]
+    route_diff = max(int((a != b).any(-1).sum().item())
+                     for a, b in zip(ke, re_))
+    ok = metric_err <= 1e-4 and max(change_err) <= 1e-3
+    out = {"phase": "train_moe_e2e", "model": "mixtral-8x7b", "layers": 1,
+           "dtype": "float32", "batch": B, "seq": S, "steps": steps,
+           "optimizer": "adafactor lr 1e-3 warmup 1",
+           "kernel_engine": km, "plain_engine": rm,
+           "kernel_engine_launches": kl, "plain_engine_launches": rl,
+           "max_rel_err_loss_total_grad_norm": metric_err,
+           "max_rel_err_param_change": max(change_err),
+           "tokens_with_different_top2": route_diff,
+           "route_calls_compared": len(ke),
+           "dropped_pair_share": [kd, rd], "ok": ok}
+    if not ok:
+        raise AssertionError(f"kernel and plain MoE training disagree: "
+                             f"{out}")
+    return out
+
+
+# -- multiplexed LoRA serving (llama-1b) --------------------------------------
+LORA_RANK, LORA_SCALE = 16, 2.0
+LORA_IDS = ["", "a1", "a2", "a1", "a3", "", "a3", "a2",
+            "a1", "", "a2", "a3", "a1", "a2", "", "a3"]
+LORA_RESEND = 3            # same model (a1), after every other request
+LORA_SHARED = (2, 5)       # a2 and the base model share a 32-token prefix
+
+
+def lora_adapters(cfg, seed=1):
+    """Three rank-16 LoRA adapters on wq and wv of every layer (scale 2.0;
+    B for the fused heads as [L, r, H * Dh]); a3 also carries a delta on
+    final_norm.  Factors from numpy seed `seed`."""
+    rng = np.random.RandomState(seed)
+    L, d, r = cfg.n_layers, cfg.d_model, LORA_RANK
+
+    def pair(k):
+        a = rng.randn(L, d, r).astype(np.float32) / np.sqrt(d)
+        b = (rng.randn(L, r, k) * 0.02).astype(np.float32)
+        return a, b
+
+    out = {}
+    for name in ("a1", "a2", "a3"):
+        out[name] = {"lora": {"wq": pair(cfg.n_heads * cfg.head_dim),
+                              "wv": pair(cfg.kv_heads * cfg.head_dim)},
+                     "scale": LORA_SCALE}
+    out["a3"]["delta"] = {"final_norm": (rng.randn(d) * 0.1).astype(
+        np.float32)}
+    return out
+
+
+def lora_prompts(vocab, seed=2):
+    """16 prompts of 16..48 tokens; LORA_SHARED share a 32-token prefix,
+    LORA_RESEND is 40 tokens (its re-send hits 32 cached tokens)."""
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, 32).tolist()
+    prompts = [rng.randint(0, vocab, rng.randint(16, 49)).tolist()
+               for _ in LORA_IDS]
+    for i in LORA_SHARED:
+        prompts[i] = prefix + rng.randint(0, vocab, 8).tolist()
+    prompts[LORA_RESEND] = rng.randint(0, vocab, 40).tolist()
+    return prompts
+
+
+class SwapLog:
+    """Wraps a PagedBatcher's `_swap_model` and `_load_model`: counts swaps
+    and merges (LRU misses), times each merge (synchronised), and records
+    the resident models after each swap."""
+
+    def __init__(self, torch, bat):
+        self.swaps, self.merge_ms, self.resident = [], [], []
+        swap, load = bat._swap_model, bat._load_model
+
+        def timed_load(mid):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = load(mid)
+            torch.cuda.synchronize()
+            self.merge_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def logged_swap(mid):
+            swap(mid)
+            self.swaps.append(mid)
+            self.resident.append(bat.resident_models())
+
+        bat._load_model, bat._swap_model = timed_load, logged_swap
+
+
+def phase_serve_lora(torch, pa):
+    """PagedBatcher on llama-1b at full width (bf16, random weights from
+    seed 0) with three LoRA adapters and max_resident_models=2: 16
+    requests of 16-48 prompt tokens and 32 new tokens in LORA_IDS' model
+    order, then a same-model re-send."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import PagedBatcher
+    kw = preset_kwargs(torch, dtype=torch.bfloat16)
+    cfg = transformer.TransformerConfig(**kw)
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    adapters = lora_adapters(cfg)
+    t0 = time.time()
+    bat = PagedBatcher(params, cfg, adapters=adapters,
+                       max_resident_models=2, **ENGINE)
+    del params
+    log = SwapLog(torch, bat)
+    wait_warm(bat)
+    setup_s = time.time() - t0
+    vocab, max_new = cfg.vocab_size, 32
+    prompts = lora_prompts(vocab)
+    try:
+        pa.launches = 0
+        steps0 = bat.steps
+        t_run = time.time()
+        reqs = [bat.submit(p, max_new, model_id=m)
+                for p, m in zip(prompts, LORA_IDS)]
+        for r in reqs:
+            if not r.done.wait(600):
+                raise TimeoutError("request did not finish")
+        run_s = time.time() - t_run
+        again = bat.submit(prompts[LORA_RESEND], max_new,
+                           model_id=LORA_IDS[LORA_RESEND])
+        if not again.done.wait(600):
+            raise TimeoutError("re-sent request did not finish")
+        launches, steps = pa.launches, bat.steps - steps0
+        for r in reqs + [again]:
+            check_request(r, vocab, max_new)
+        cached = [r.cached_tokens for r in reqs]
+        if any(cached) or not again.cached_tokens > 0:
+            raise AssertionError(f"cached tokens {cached}, re-send "
+                                 f"{again.cached_tokens}: only the "
+                                 "same-model re-send may hit")
+        most = max(len(r) for r in log.resident)
+        evictions = sum(1 for a, b in zip(log.resident, log.resident[1:])
+                        if set(a) - set(b) - {""})
+        if most > 2 or len(log.swaps) < 5 or evictions < 1:
+            raise AssertionError(f"swaps {log.swaps}, resident "
+                                 f"{log.resident}")
+        if launches < steps * cfg.n_layers or launches == 0:
+            raise AssertionError(f"{launches} kernel launches for {steps} "
+                                 f"decode steps x {cfg.n_layers} layers")
+        ttft = {}
+        prefill = {}
+        for r, m in zip(reqs, LORA_IDS):
+            ttft.setdefault(m or "base", []).append(r.ttft_s * 1e3)
+            prefill.setdefault(m or "base", []).append(r.prefill_s * 1e3)
+        out = {"phase": "serve_lora", "model": "llama-1b",
+               "dtype": "bfloat16", "adapters": sorted(adapters),
+               "lora_rank": LORA_RANK, "max_resident_models": 2,
+               "setup_s": setup_s, "requests": len(reqs) + 1,
+               "wall_s": run_s,
+               "decode_tokens_per_s": len(reqs) * max_new / run_s,
+               "swaps": len(log.swaps), "swap_order": log.swaps,
+               "evictions": evictions, "max_resident": most,
+               "merges": len(log.merge_ms),
+               "merge_ms": log.merge_ms,
+               "merge_ms_p50": statistics.median(log.merge_ms),
+               "ttft_p50_ms_by_model": {m: statistics.median(v)
+                                        for m, v in ttft.items()},
+               "prefill_p50_ms_by_model": {m: statistics.median(v)
+                                           for m, v in prefill.items()},
+               "resend_cached_tokens": again.cached_tokens,
+               "shared_prefix_cached_tokens": [cached[i]
+                                               for i in LORA_SHARED],
+               "tokens_differ_from_base_on_shared_prefix":
+                   reqs[LORA_SHARED[0]].tokens
+                   != reqs[LORA_SHARED[1]].tokens,
+               "decode_steps": steps, "kernel_launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        bat.stop()
+    return out, launches
+
+
+def phase_serve_lora_e2e(torch, pa):
+    """llama-1b widths at 2 layers in f32: each request's greedy tokens
+    through the multiplexed engine equal a single-model engine's built on
+    merge_adapter's weights for that model; merge_adapter on the card
+    against a numpy float64 merge (relative error <= 1e-6)."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import PagedBatcher
+    from ray_tpu_torch.serve.multiplex import merge_adapter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = preset_kwargs(torch, n_layers=2, dtype=torch.float32)
+    cfg = transformer.TransformerConfig(**kw)
+    params = transformer.init_params(cfg, seed=1, device="cuda")
+    adapters = lora_adapters(cfg, seed=3)
+    ids = LORA_IDS[:8]
+    prompts = lora_prompts(cfg.vocab_size, seed=4)[:8]
+    merge_err = 0.0
+    for spec in adapters.values():
+        merged = merge_adapter(params, spec)
+        for name, (a, b) in spec["lora"].items():
+            base = params["layers"][name].double().cpu().numpy()
+            want = base + spec["scale"] * np.einsum(
+                "ldr,lrk->ldk", a.astype(np.float64),
+                b.astype(np.float64)).reshape(base.shape)
+            got = merged["layers"][name].double().cpu().numpy()
+            merge_err = max(merge_err, float(np.linalg.norm(got - want)
+                                             / np.linalg.norm(want)))
+    if merge_err > 1e-6:
+        raise AssertionError(f"merge_adapter off by {merge_err} against "
+                             "a float64 merge")
+    bat = PagedBatcher(params, cfg, adapters=adapters,
+                       max_resident_models=2, **ENGINE)
+    try:
+        wait_warm(bat)
+        pa.launches = 0
+        reqs = [bat.submit(p, 16, model_id=m) for p, m in zip(prompts, ids)]
+        for r in reqs:
+            r.done.wait(600)
+            check_request(r, cfg.vocab_size, 16)
+        mux_launches = pa.launches
+    finally:
+        bat.stop()
+    single = {}
+    for mid in sorted(set(ids)):
+        weights = params if mid == "" else merge_adapter(params,
+                                                         adapters[mid])
+        one = PagedBatcher(weights, cfg, **ENGINE)
+        try:
+            wait_warm(one)
+            todo = [(i, one.submit(prompts[i], 16))
+                    for i, m in enumerate(ids) if m == mid]
+            for i, r in todo:
+                r.done.wait(600)
+                check_request(r, cfg.vocab_size, 16)
+                single[i] = r.tokens
+        finally:
+            one.stop()
+    mismatch = [i for i, r in enumerate(reqs) if r.tokens != single[i]]
+    if mismatch or mux_launches == 0:
+        raise AssertionError(f"multiplexed and single-model engines "
+                             f"disagree on requests {mismatch} "
+                             f"(launches {mux_launches})")
+    return {"phase": "serve_lora_e2e", "layers": 2, "dtype": "float32",
+            "requests": len(reqs), "models": sorted(set(ids)),
+            "tokens_compared": sum(len(r.tokens) for r in reqs),
+            "tokens_equal": True, "kernel_launches": mux_launches,
+            "merge_max_rel_err_vs_float64": merge_err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1109,13 +1628,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 7. training end to end, kernel vs plain
     emit(phase_train_e2e(torch, fa))
+    torch.cuda.empty_cache()
+    # 8. MoE training at mixtral's width through B1-B3 at D 128
+    moe, moe_launches, moe_prof = phase_train_moe(torch, fa)
+    emit(moe)
+    emit(moe_prof)
+    torch.cuda.empty_cache()
+    # 9. MoE training end to end, kernel vs plain
+    emit(phase_train_moe_e2e(torch, fa))
+    torch.cuda.empty_cache()
+    # 10. multiplexed LoRA serving at full width through B4
+    lora, lora_launches = phase_serve_lora(torch, pa)
+    emit(lora)
+    torch.cuda.empty_cache()
+    # 11. multiplexed serving end to end, against single-model engines
+    emit(phase_serve_lora_e2e(torch, pa))
 
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:195",
-        "launches": launches,
+        "launches": launches + lora_launches,
+        "launches_by_path": {"serve": launches,
+                             "serve_lora": lora_launches},
         "max_abs_err": timing["max_abs_err"],
         **{k: timing[k] for k in KERNEL_TIME_KEYS}}]
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:272",
@@ -1126,7 +1662,10 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": where, "launches": train_launches[kname],
+            "replaces": where,
+            "launches": train_launches[kname] + moe_launches[kname],
+            "launches_by_path": {"train": train_launches[kname],
+                                 "train_moe": moe_launches[kname]},
             "max_abs_err": t["max_abs_err"],
             **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})

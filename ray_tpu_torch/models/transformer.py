@@ -9,12 +9,22 @@ runs in `cfg.dtype` with f32 norms, softmax and logits, as in the JAX
 package.
 
 Ported: the config, presets, init, the helpers the serving path uses
-(`_norm`, `_rope`, `_w_out`), and the training forward for dense llama
-and gpt2 on one device: `_layer_body`, `forward_hidden_aux`,
-`forward_hidden`, `forward`, `fused_cross_entropy` and `loss_fn`.  Every
-layer reaches the flash kernels through `ops.attention.attention_with_lse`
-(`cfg.attn_impl`).  `mesh` must be None (the sharded path is ROADMAP A6)
-and `moe_experts > 0` raises (the MoE block waits for A9).
+(`_norm`, `_rope`, `_w_out`), and the training forward for llama and
+gpt2, dense or MoE, on one device: `_moe_block`, `_layer_body`,
+`forward_hidden_aux`, `forward_hidden`, `forward`, `fused_cross_entropy`
+and `loss_fn`.  Every layer reaches the flash kernels through
+`ops.attention.attention_with_lse` (`cfg.attn_impl`).  `mesh` must be
+None (the sharded path is ROADMAP A6; expert parallelism is A9).
+
+MoE.  `_moe_block` computes JAX's GShard-style block (top-k routing in
+f32, renormalised gates, a fixed capacity per expert, pairs past it
+dropped) with index-based dispatch instead of JAX's dense [T, E, cap]
+one-hot einsums: each kept (token, choice) pair gets a flat slot
+`expert * cap + position`, each expert's [cap, D] input is gathered by
+slot, the experts run as batched products, and each token sums its
+kept slots' outputs times its gates.  Dropped pairs are masked out:
+dispatched into a spare row that is cut off, combined with weight 0.
+Same function, no [T, E, cap] tensor.
 
 Remat.  `cfg.remat` checkpoints each layer with `torch.utils.checkpoint`
 by policy: "names" and "dots" checkpoint the two halves around the
@@ -22,7 +32,10 @@ attention call — (norm, qkv, rope) and (wo, residual, norm, MLP) — and
 leave the attention Function outside, so its own residuals (q, k, v, o,
 lse) are kept and the flash forward is never re-run in the backward pass
 (a ctypes launch is invisible to selective checkpointing).  "dots" also
-keeps the matrix products' outputs, "names" recomputes them.
+keeps the outputs of products without a batch dimension (JAX's
+`dots_with_no_batch_dims_saveable`: the einsums lower to `bmm` with a
+batch of 1), so MoE's batched expert products are recomputed, as in
+JAX; "names" recomputes every product.
 "nothing" checkpoints the whole layer and re-runs everything, the flash
 forward included, as JAX's `nothing_saveable` does.  Policies change
 memory and FLOPs, never values.
@@ -263,11 +276,78 @@ def _check_supported(cfg: TransformerConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "ray_tpu_torch runs the model on one device (mesh=None); the "
-            "sharded path is ROADMAP Queue A, A6")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "the MoE block is not ported yet (ROADMAP Queue A, A9: MoE "
-            "with expert parallelism); use moe_experts=0")
+            "sharded path is ROADMAP Queue A, A6 (expert parallelism A9)")
+
+
+def _moe_route(cfg: TransformerConfig, ht, w_router):
+    """Routing of `_moe_block`.  ht: [T, D] -> (probs [T, E] f32, gates
+    [T, K] f32 renormalised to sum 1, experts [T, K], slots [T, K], cap).
+
+    Slots are assigned choice by choice, j = 0 first, tokens in order:
+    the pairs of choice j fill each expert after the pairs kept for
+    earlier choices.  A pair's slot is `expert * cap + position`, or
+    `E * cap` (the spare row) when position >= cap: the pair is dropped
+    and its token's other gates are not renormalised."""
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    T = ht.shape[0]
+    probs = torch.softmax(ht.float() @ w_router.float(), dim=-1)
+    gates, experts = torch.topk(probs, K, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    cap = int(math.ceil(T * K * cfg.moe_capacity_factor / E))
+    filled = torch.zeros(E, dtype=torch.int64, device=ht.device)
+    slots = []
+    for j in range(K):
+        # [E, T]: the running count scans each expert's row (a scan over
+        # the first axis of [T, E] parallelises over E columns only).
+        onehot = F.one_hot(experts[:, j], E).t().contiguous()
+        pos = (onehot.cumsum(1) - onehot + filled[:, None]).gather(
+            0, experts[None, :, j])[0]
+        keep = pos < cap
+        slots.append(torch.where(keep, experts[:, j] * cap + pos, E * cap))
+        filled = filled + (onehot * keep).sum(1)
+    return probs, gates, experts, torch.stack(slots, 1), cap
+
+
+def _moe_dispatch(ht, slots, n):
+    """Each kept pair's token row into its slot: [n, D] expert inputs.
+    Dropped pairs all write the spare row n, which is cut off."""
+    xin = ht.new_zeros(n + 1, ht.shape[1])
+    for j in range(slots.shape[1]):
+        xin = xin.index_put((slots[:, j],), ht)
+    return xin[:n]
+
+
+def _moe_combine(out_e, gates, slots, dtype):
+    """Each token's sum of gate x its kept slots' outputs: gates rounded
+    to `dtype` (JAX's combine.astype), products summed in f32, cast to
+    `dtype`.  A dropped pair reads slot n - 1 with weight 0."""
+    n = out_e.shape[0]
+    w = gates.to(dtype).float() * (slots < n)
+    idx = slots.clamp(max=n - 1)
+    out = sum(w[:, j, None] * out_e[idx[:, j]].float()
+              for j in range(slots.shape[1]))
+    return out.to(dtype)
+
+
+def _moe_block(cfg: TransformerConfig, h, p):
+    """MoE FFN on one device.  h: [B, S, D] (normed) -> (out [B, S, D],
+    aux load-balancing loss, f32 scalar).  The experts compute
+    silu(x W_gate) * (x W_up) then W_down, for every arch."""
+    B, S, D = h.shape
+    E = cfg.moe_experts
+    ht = h.reshape(B * S, D)
+    probs, gates, experts, slots, cap = _moe_route(cfg, ht, p["w_router"])
+    xin = _moe_dispatch(ht, slots, E * cap).view(E, cap, D)
+    gate = torch.bmm(xin, p["w_gate"].to(cfg.dtype))
+    up = torch.bmm(xin, p["w_up"].to(cfg.dtype))
+    act = F.silu(gate.float()).to(cfg.dtype) * up
+    out_e = torch.bmm(act, p["w_down"].to(cfg.dtype)).view(E * cap, D)
+    out = _moe_combine(out_e, gates, slots, cfg.dtype)
+    # Load balance (Switch/GShard): E * sum_e frac_tokens * mean_probs,
+    # frac_tokens from the top-1 choice (no gradient through it).
+    frac_tokens = F.one_hot(experts[:, 0], E).float().mean(0)
+    aux = E * (frac_tokens * probs.mean(0)).sum()
+    return out.reshape(B, S, D), aux
 
 
 def _attn_in(cfg: TransformerConfig, x, p, positions):
@@ -292,11 +372,14 @@ def _attention(cfg: TransformerConfig, q, k, v):
 
 
 def _attn_out_mlp(cfg: TransformerConfig, x, o, p):
-    """wo, residual, norm, MLP, residual: -> x [B,S,D]."""
+    """wo, residual, norm, MLP or MoE, residual: -> (x [B,S,D], aux)."""
     o = o.transpose(1, 2)                                  # [B,S,H,Dh]
     x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
     rms = cfg.arch == "llama"
     h = _norm(x, p["mlp_norm"], p.get("mlp_norm_b"), cfg.norm_eps, rms)
+    if cfg.moe_experts > 0:
+        out, aux = _moe_block(cfg, h, p)
+        return x + out, aux
     if cfg.arch == "llama":
         gate = h @ p["w_gate"].to(h.dtype)
         up = h @ p["w_up"].to(h.dtype)
@@ -307,15 +390,14 @@ def _attn_out_mlp(cfg: TransformerConfig, x, o, p):
     down = act @ p["w_down"].to(act.dtype)
     if cfg.arch == "gpt2":
         down = down + p["b_down"].to(down.dtype)
-    return x + down
+    return x + down, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_body(cfg: TransformerConfig, mesh, x, p, positions):
-    """One decoder layer, no remat. x: [B, S, D] -> (x, aux = 0)."""
+    """One decoder layer, no remat. x: [B, S, D] -> (x, MoE aux or 0)."""
     _check_supported(cfg, mesh)
     q, k, v = _attn_in(cfg, x, p, positions)
-    x = _attn_out_mlp(cfg, x, _attention(cfg, q, k, v), p)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _attn_out_mlp(cfg, x, _attention(cfg, q, k, v), p)
 
 
 _MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -324,9 +406,12 @@ _MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 def _save_matmuls(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of remat "dots": keep the outputs of
-    matrix products, recompute the rest."""
+    matrix products without a batch dimension (a `bmm` of batch 1 is an
+    einsum's), recompute the rest, MoE's batched expert products too."""
     from torch.utils.checkpoint import CheckpointPolicy
-    return (CheckpointPolicy.MUST_SAVE if op in _MATMUL_OPS
+    save = op in _MATMUL_OPS and (op is not torch.ops.aten.bmm.default
+                                  or args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if save
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -334,7 +419,7 @@ def _remat_layer(cfg: TransformerConfig, x, p, positions):
     policy = cfg.remat_policy
     if policy == "nothing":
         return checkpoint(lambda x_: _layer_body(cfg, None, x_, p,
-                                                 positions)[0],
+                                                 positions),
                           x, use_reentrant=False)
     if policy not in ("names", "dots"):
         raise ValueError(f"unknown remat_policy {policy!r}")
@@ -361,8 +446,8 @@ def _layers(params) -> list:
 def forward_hidden_aux(params: Dict[str, Any], tokens: torch.Tensor,
                        cfg: TransformerConfig, mesh=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] int -> (final-norm hidden [B, S, D], summed MoE aux
-    loss — zero for the dense models the port runs)."""
+    """tokens: [B, S] int -> (final-norm hidden [B, S, D], MoE aux loss
+    summed over the layers in f32 — zero for dense models)."""
     _check_supported(cfg, mesh)
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["tok_embed"]).to(cfg.dtype)
@@ -370,13 +455,14 @@ def forward_hidden_aux(params: Dict[str, Any], tokens: torch.Tensor,
                              device=x.device).expand(B, S)
     if cfg.arch == "gpt2":
         x = x + params["pos_embed"][:S][None].to(cfg.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in _layers(params):
         if cfg.remat:
-            x = _remat_layer(cfg, x, p, positions)
+            x, a = _remat_layer(cfg, x, p, positions)
         else:
-            x = _layer_body(cfg, mesh, x, p, positions)[0]
+            x, a = _layer_body(cfg, mesh, x, p, positions)
+        aux = aux + a
     rms = cfg.arch == "llama"
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _norm(x, params["final_norm"], params.get("final_norm_b"),
                  cfg.norm_eps, rms), aux
 
@@ -435,10 +521,12 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
 
 def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy.  tokens: [B, S]; predicts tokens[:,1:].
-    Returns (loss, {"loss", "ppl"})."""
+    """Next-token cross-entropy, plus `moe_aux_weight` x the MoE
+    load-balancing loss for MoE models.  tokens: [B, S]; predicts
+    tokens[:,1:].  Returns (loss, {"loss", "ppl"} and, for MoE,
+    {"moe_aux", "total_loss"}); "loss" is the cross-entropy alone."""
     targets = tokens[:, 1:]
-    x, _ = forward_hidden_aux(params, tokens[:, :-1], cfg, mesh)
+    x, aux = forward_hidden_aux(params, tokens[:, :-1], cfg, mesh)
     if cfg.xent_chunk is None:
         B, S, D = x.shape
         logits = _matmul_f32(x.reshape(B * S, D).to(cfg.dtype),
@@ -448,7 +536,12 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None
         loss = nll.mean()
     else:
         loss = fused_cross_entropy(x, _w_out(params, cfg), targets, cfg)
-    return loss, {"loss": loss, "ppl": torch.exp(loss)}
+    metrics = {"loss": loss, "ppl": torch.exp(loss)}
+    if cfg.moe_experts > 0:
+        metrics["moe_aux"] = aux
+        loss = loss + cfg.moe_aux_weight * aux
+        metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def num_params(params) -> int:

@@ -31,10 +31,19 @@ while chunk k's tokens are processed.  Every dispatch is tagged with its
 dispatches were in flight just has its extra tokens dropped, and
 in-order processing makes the attribution exact.
 
-Not ported yet: multiplexed LoRA adapters (`adapters=` raises
-NotImplementedError), the KV/prefix-cache metrics (`_get_kv_metrics`
-returns None) and deployment through the serve runtime — this slice's
-entry points are `LLMDeployment` / `PagedBatcher` in process.
+Multiplexing (paged engine): requests tagged with a `model_id` hot-swap
+LoRA adapters merged into the base weights (`serve/multiplex.py`
+`merge_adapter`), LRU-resident up to `max_resident_models`; same shapes,
+new weights, so the decode path and B4's inputs (the KV pool) are
+untouched, and each model keys its own radix tree so prefix reuse never
+crosses models.  A model mismatch at the head of the queue drains the
+engine, then swaps; an unknown adapter fails its request, not the
+engine.
+
+Not ported yet: adapter specs given as object-store refs, the
+KV/prefix-cache metrics (`_get_kv_metrics` returns None) and deployment
+through the serve runtime (all ROADMAP A3) — this slice's entry points
+are `LLMDeployment` / `PagedBatcher` in process.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import os
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -290,8 +299,8 @@ class ContinuousBatcher:
 
     def submit(self, prompt: List[int], max_new: int = 32,
                streaming: bool = False, model_id: str = "") -> _Request:
-        """Enqueue a request.  `model_id` selects a multiplexed adapter,
-        which this port does not serve yet.
+        """Enqueue a request.  `model_id` selects a multiplexed adapter
+        (paged engine only).
 
         With `max_queue` set, a submit that finds that many requests
         already queued raises the typed RequestRejectedError HERE —
@@ -307,8 +316,8 @@ class ContinuousBatcher:
                              f"prompt budget {self.prompt_pad}")
         if model_id and not self.supports_multiplex:
             raise ValueError(
-                f"model multiplexing is not ported yet: "
-                f"{type(self).__name__} serves the base model only")
+                "model multiplexing requires the paged engine "
+                "(paged_kv=True)")
         req = _Request(prompt=list(prompt), max_new=max_new,
                        model_id=model_id,
                        stream_q=queue.Queue() if streaming else None)
@@ -916,7 +925,7 @@ class RadixCache:
 
 class PagedBatcher(ContinuousBatcher):
     """Paged-KV continuous batcher: block-pool cache + radix prefix
-    cache (see module docstring).
+    cache + multiplexed adapter hot-swap (see module docstring).
 
     Inherits the pipelined dispatch/process machinery and swaps the
     cache layer: admission allocates refcounted blocks (evicting cold
@@ -925,7 +934,14 @@ class PagedBatcher(ContinuousBatcher):
     decode attends through block tables with the ragged paged-attention
     kernel (`attn_impl`: "auto" = the CUDA kernel on the card and the
     plain version on the CPU; "kernel" / "reference" force one).
+
+    `adapters={model_id: spec}` (see `multiplex.merge_adapter`) are
+    merged into `params` as given — f32 parameters merge in f32, as the
+    JAX engine does — and each merged model is cast for serving
+    (`decoding.serving_params`), sharing the leaves it leaves untouched.
     """
+
+    supports_multiplex = True
 
     def __init__(self, params, cfg, num_slots: int = 8,
                  max_len: int = 512, prompt_pad: int = 64,
@@ -936,15 +952,11 @@ class PagedBatcher(ContinuousBatcher):
                  kv_num_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  adapters: Optional[Dict[str, Any]] = None,
+                 max_resident_models: int = 3,
                  attn_impl: str = "auto",
                  max_queue: int = 0) -> None:
         from ray_tpu_torch._private.config import config
         from ray_tpu_torch.models import decoding
-        if adapters:
-            raise NotImplementedError(
-                "multiplexed adapters are not ported to ray_tpu_torch "
-                "yet (the LoRA merge and object-store fetch come with a "
-                "later slice)")
         self.block_size = int(kv_block_size or config.kv_block_size)
         if self.block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
@@ -982,6 +994,16 @@ class PagedBatcher(ContinuousBatcher):
         self._waiting: deque = deque()
         self._waiting_fail: Optional[Exception] = None
         self._attn_impl = attn_impl
+        self._adapters = dict(adapters or {})
+        # The merge source (as given) only when there is something to
+        # merge: otherwise f32 originals would stay alive beside their
+        # serving casts.
+        self._base_params = params if self._adapters else None
+        params = decoding.serving_params(params, cfg)
+        self._models: "OrderedDict[str, Any]" = OrderedDict()
+        self._models[""] = params
+        self._max_resident = max(max_resident_models, 1)
+        self._model_id = ""
         self._cache_queries = 0
         self._cache_hits = 0
         self._cache_hit_tokens = 0
@@ -1103,7 +1125,72 @@ class PagedBatcher(ContinuousBatcher):
                     "cached_blocks": sum(t.size
                                          for t in self._radix.values()),
                 },
+                "models_resident": list(self._models),
+                "model_id": self._model_id,
             }
+
+    def resident_models(self) -> List[str]:
+        # _kv_lock: _swap_model mutates _models on the dispatcher
+        # thread while other threads read them.
+        with self._kv_lock:
+            return [m for m in self._models if m]
+
+    # -- multiplexing ------------------------------------------------------
+    def _load_model(self, model_id: str):
+        """Merge an adapter into the base weights and cast what it
+        changed for serving; untouched layer weights are the base
+        model's own serving tensors.  (The base entry "" is always
+        resident, so it never comes here.)"""
+        spec = self._adapters.get(model_id)
+        if spec is None:
+            raise KeyError(f"unknown multiplexed model {model_id!r} "
+                           f"(registered: {sorted(self._adapters)})")
+        if not isinstance(spec, dict):
+            raise NotImplementedError(
+                f"adapter {model_id!r}: only dict specs are served; specs "
+                "fetched from the object store need the actor runtime "
+                "(ROADMAP Queue A, A3)")
+        from ray_tpu_torch.serve.multiplex import merge_adapter
+        base = self._base_params["layers"]
+        merged = merge_adapter(self._base_params, spec)
+        changed = {k: v for k, v in merged["layers"].items()
+                   if v is not base[k]}
+        cast = self._dec.serving_params({**merged, "layers": changed},
+                                        self.cfg)
+        return {**cast, "layers": {**self._models[""]["layers"],
+                                   **cast["layers"]}}
+
+    def _swap_model(self, model_id: str) -> None:
+        """Hot-swap the active adapter: the LRU-missed merge, then new
+        weights for the same decode path.  Caller (dispatcher)
+        guarantees no live slots and an empty pipeline."""
+        with self._kv_lock:
+            params = self._models.get(model_id)
+        if params is None:
+            # Merge outside the lock; only the dict mutations below need
+            # it (resident_models()/kv_stats() read _models from other
+            # threads).
+            params = self._load_model(model_id)
+        with self._kv_lock:
+            self._models[model_id] = params
+            while len(self._models) > self._max_resident:
+                # Never evict the base entry or the adapter being
+                # swapped in (max_resident_models=1 would otherwise
+                # evict it right here).
+                for mid in self._models:
+                    if mid != "" and mid != model_id:
+                        del self._models[mid]
+                        break
+                else:
+                    break
+            self._models.move_to_end(model_id)
+        self.params = params
+        self._model_id = model_id
+
+    def _can_swap(self) -> bool:
+        with self._state_lock:
+            busy = any(r is not None for r in self._owner)
+        return not busy and not self._inflight
 
     def _tail_throttle(self, req: "_Request") -> bool:
         # Only a capacity-CLAMPED allocation needs the single-token
@@ -1177,13 +1264,23 @@ class PagedBatcher(ContinuousBatcher):
 
     def _admit(self, free: List[int]) -> List[tuple]:
         """FIFO admission with head-of-line backpressure: pop waiting
-        requests while slots AND blocks last."""
+        requests while slots AND blocks last; a model mismatch at the
+        head drains current-model slots, then hot-swaps."""
         admitted: List[tuple] = []
         while self._waiting and len(admitted) < len(free):
             req = self._waiting[0]
             if req.done.is_set():          # failed/cancelled upstream
                 self._waiting.popleft()
                 continue
+            if req.model_id != self._model_id:
+                if admitted or not self._can_swap():
+                    break                  # drain, then swap next tick
+                try:
+                    self._swap_model(req.model_id)
+                except Exception as e:     # unknown adapter, bad spec
+                    self._waiting.popleft()
+                    self._finish_request(req, error=e)
+                    continue
             got = self._try_admit(req)
             if got is None:
                 break                      # queue for blocks
@@ -1206,10 +1303,10 @@ class PagedBatcher(ContinuousBatcher):
         self._update_kv_gauges()
 
     def _flush_prefix_cache_locked(self) -> None:
-        """Drop every cached prefix.  Refcount-0 blocks return to the
-        free list via release_cached; a block some racing admission
-        still holds is merely unmarked and frees on its last decref.
-        Caller holds _kv_lock."""
+        """Drop every cached prefix across all models' trees.  Refcount-0
+        blocks return to the free list via release_cached; a block some
+        racing admission still holds is merely unmarked and frees on its
+        last decref.  Caller holds _kv_lock."""
         for tree in self._radix.values():
             stack = list(tree.root.children.values())
             while stack:
@@ -1325,6 +1422,9 @@ class LLMDeployment:
     models/convert.py) or are made by `init_params` from `seed` on
     `device` (CUDA unless the caller asks for the CPU).  The layer
     matrices are cast to `cfg.dtype` once (decoding.serving_params).
+    With `adapters={model_id: spec}` one engine serves many LoRA
+    variants: a request's model id is the multiplexed id of the calling
+    context (`serve.multiplex.get_multiplexed_model_id`).
     """
 
     def __init__(self, cfg_kwargs: Dict[str, Any], num_slots: int = 8,
@@ -1337,32 +1437,40 @@ class LLMDeployment:
                  kv_num_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  adapters: Optional[Dict[str, Any]] = None,
+                 max_resident_models: int = 3,
                  max_queue: int = 0,
                  device=None) -> None:
         from ray_tpu_torch._private.device import resolve_device
         from ray_tpu_torch.models import decoding, transformer
-        if adapters:
-            raise NotImplementedError(
-                "multiplexed adapters are not ported to ray_tpu_torch "
-                "yet")
         cfg = transformer.TransformerConfig(**cfg_kwargs)
         if params is None:
             params = transformer.init_params(
                 cfg, seed=seed, device=resolve_device(device))
-        params = decoding.serving_params(params, cfg)
         if paged_kv:
+            # The engine casts for serving itself, after any merge.
             self.batcher: ContinuousBatcher = PagedBatcher(
                 params, cfg, num_slots=num_slots, max_len=max_len,
                 prompt_pad=prompt_pad, decode_chunk=decode_chunk,
                 pipeline_depth=pipeline_depth,
                 kv_block_size=kv_block_size,
                 kv_num_blocks=kv_num_blocks,
-                prefix_cache=prefix_cache, max_queue=max_queue)
+                prefix_cache=prefix_cache, adapters=adapters,
+                max_resident_models=max_resident_models,
+                max_queue=max_queue)
         else:
+            if adapters:
+                raise ValueError("adapters/multiplexing requires "
+                                 "paged_kv=True")
+            params = decoding.serving_params(params, cfg)
             self.batcher = ContinuousBatcher(
                 params, cfg, num_slots=num_slots, max_len=max_len,
                 prompt_pad=prompt_pad, decode_chunk=decode_chunk,
                 pipeline_depth=pipeline_depth, max_queue=max_queue)
+
+    @staticmethod
+    def _request_model_id() -> str:
+        from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id
+        return get_multiplexed_model_id()
 
     async def generate(self, prompt: List[int],
                        max_new: int = 32) -> Dict[str, Any]:
@@ -1372,7 +1480,8 @@ class LLMDeployment:
         for the cached prefix)."""
         import asyncio
         route_t0 = time.time()
-        req = self.batcher.submit(prompt, max_new)
+        req = self.batcher.submit(prompt, max_new,
+                                  model_id=self._request_model_id())
         loop = asyncio.get_running_loop()
         finished = await loop.run_in_executor(None, req.done.wait, 300.0)
         if not finished:
@@ -1392,11 +1501,14 @@ class LLMDeployment:
 
     def generate_stream(self, prompt: List[int],
                         max_new: int = 32) -> Iterator[int]:
-        """Streaming generator over the decoded tokens."""
-        yield from self.batcher.generate_stream(prompt, max_new)
+        """Streaming generator over the decoded tokens; honours the
+        multiplexed model id like generate()."""
+        yield from self.batcher.generate_stream(
+            prompt, max_new, model_id=self._request_model_id())
 
     def __call__(self, prompt: List[int]) -> Dict[str, Any]:
-        return self.batcher.generate(prompt)
+        return self.batcher.generate(
+            prompt, model_id=self._request_model_id())
 
     def stats(self) -> Dict[str, Any]:
         out = {"steps": self.batcher.steps}

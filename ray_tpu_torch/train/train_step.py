@@ -10,17 +10,20 @@ telemetry hooks (`_cache_size`, `flops_per_token`, `shard_batch`) carry
 over.
 
 `make_optimizer` is a plain-PyTorch transcription of the JAX package's
-optax chain (`clip_by_global_norm` then `adamw` on a warmup-cosine
-schedule), with optax's exact rules: the learning rate is read at the
-count before the increment (the first step's is 0); clipping multiplies
-by max/norm only when norm >= max, with no epsilon; AdamW uses eps=1e-8,
-eps_root=0, bias corrections, and decays every parameter (norms and
-embeddings too); the first moment is updated and bias-corrected in f32
-and only then stored as `mu_dtype` (bf16 by default).  The decay
-`b1 * mu` multiplies the stored mu by b1 rounded to `mu_dtype` (JAX's
-weak typing) and keeps the product in f32, unrounded, as XLA's fused
-update does; the second moment is f32.  `torch.optim.AdamW` and `clip_grad_norm_` differ from it
-in these details.  Parameters and moments are updated in place.
+optax chains on a warmup-cosine schedule: `kind="adamw"` (the default)
+is `clip_by_global_norm` then `adamw`, `kind="adafactor"` is
+`optax.adafactor(learning_rate=schedule)` with its defaults (see
+`Adafactor`).  AdamW follows optax's exact rules: the learning rate is
+read at the count before the increment (the first step's is 0); clipping
+multiplies by max/norm only when norm >= max, with no epsilon; AdamW
+uses eps=1e-8, eps_root=0, bias corrections, and decays every parameter
+(norms and embeddings too); the first moment is updated and
+bias-corrected in f32 and only then stored as `mu_dtype` (bf16 by
+default).  The decay `b1 * mu` multiplies the stored mu by b1 rounded to
+`mu_dtype` (JAX's weak typing) and keeps the product in f32, unrounded,
+as XLA's fused update does; the second moment is f32.
+`torch.optim.AdamW` and `clip_grad_norm_` differ from it in these
+details.  Parameters and moments are updated in place.
 """
 
 from __future__ import annotations
@@ -65,21 +68,16 @@ def _dtype(d) -> torch.dtype:
     return d if isinstance(d, torch.dtype) else getattr(torch, str(d))
 
 
-class AdamW:
-    """clip_by_global_norm(grad_clip) -> adamw(warmup-cosine schedule),
-    as the JAX package's `make_optimizer` chains them in optax."""
+class _Scheduled:
+    """The learning-rate schedule both optimizers read:
+    optax.warmup_cosine_decay_schedule(0, lr, warmup, max(total,
+    warmup + 1))."""
 
     def __init__(self, learning_rate: float, warmup_steps: int,
-                 total_steps: int, weight_decay: float, b1: float,
-                 b2: float, grad_clip: float, mu_dtype) -> None:
+                 total_steps: int) -> None:
         self.learning_rate = learning_rate
         self.warmup_steps = warmup_steps
         self.decay_steps = max(total_steps, warmup_steps + 1)
-        self.weight_decay = weight_decay
-        self.b1, self.b2 = b1, b2
-        self.eps, self.eps_root = 1e-8, 0.0
-        self.grad_clip = grad_clip
-        self.mu_dtype = _dtype(mu_dtype)
 
     def lr(self, count: int) -> float:
         """optax.warmup_cosine_decay_schedule(0, lr, warmup, decay) at
@@ -93,6 +91,27 @@ class AdamW:
         c = f32(min(count - w, steps))
         cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(steps)))
         return float(peak * cosine)
+
+
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+
+
+class AdamW(_Scheduled):
+    """clip_by_global_norm(grad_clip) -> adamw(warmup-cosine schedule),
+    as the JAX package's `make_optimizer` chains them in optax."""
+
+    def __init__(self, learning_rate: float, warmup_steps: int,
+                 total_steps: int, weight_decay: float, b1: float,
+                 b2: float, grad_clip: float, mu_dtype) -> None:
+        super().__init__(learning_rate, warmup_steps, total_steps)
+        self.weight_decay = weight_decay
+        self.b1, self.b2 = b1, b2
+        self.eps, self.eps_root = 1e-8, 0.0
+        self.grad_clip = grad_clip
+        self.mu_dtype = _dtype(mu_dtype)
 
     def init(self, params) -> Dict[str, Any]:
         return {"count": 0,
@@ -112,7 +131,7 @@ class AdamW:
         inc = count + 1
         bc1 = float(f32(1) - f32(self.b1) ** f32(inc))
         bc2 = float(f32(1) - f32(self.b2) ** f32(inc))
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = _global_norm(grads)
         keep = norm < self.grad_clip
         b1 = float(torch.tensor(self.b1, dtype=self.mu_dtype))
         for p, g, mu, nu in zip(_leaves(params), grads,
@@ -129,15 +148,138 @@ class AdamW:
         return dict(opt_state, count=inc), norm
 
 
+def _factored_dims(shape, min_dim_size_to_factor: int
+                   ) -> Optional[Tuple[int, int]]:
+    """optax's choice: the second-largest and the largest axis (as
+    np.argsort orders `shape`), or None when the second-largest is under
+    `min_dim_size_to_factor` or the leaf has fewer than 2 axes."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(_Scheduled):
+    """optax.adafactor(learning_rate=schedule) with its defaults, as the
+    JAX package's `make_optimizer(kind="adafactor")` builds it: per leaf,
+    scale_by_factored_rms (decay 1 - (count+1)^-0.8, eps 1e-30, the two
+    largest axes factored when both are >= 128) -> clip_by_block_rms(1)
+    -> the schedule's learning rate at the count before the increment ->
+    scale_by_param_block_rms (max(rms(param), 1e-3)) -> scale(-1).  No
+    momentum, weight decay or global-norm clip.
+
+    State, all f32: per factored leaf the running means of g^2 + eps over
+    each factored axis (`v_row` drops the largest axis, `v_col` the
+    second-largest), per other leaf the full `v`; the unused entries are
+    (1,) zeros, as optax keeps them.  Both block RMS steps take the RMS
+    over the whole stacked leaf.  A leaf is walked in chunks of at most
+    `chunk_elements` along its first axis (never a factored one): one
+    pass updates the state and sums the update's squares, a second
+    applies it, so the largest temporary is one chunk."""
+
+    decay_rate = 0.8
+    eps = 1e-30
+    min_dim_size_to_factor = 128
+    clipping_threshold = 1.0
+    min_scale = 1e-3
+    chunk_elements = 1 << 28
+
+    def _dims(self, shape) -> Optional[Tuple[int, int]]:
+        return _factored_dims(shape, self.min_dim_size_to_factor)
+
+    def init(self, params) -> Dict[str, Any]:
+        def state(p, which):
+            dims = self._dims(p.shape)
+            if dims is None:
+                shape = p.shape if which == "v" else (1,)
+            elif which == "v":
+                shape = (1,)
+            else:                  # v_row drops d0, v_col drops d1
+                shape = np.delete(p.shape,
+                                  dims[1 if which == "v_row" else 0])
+            return torch.zeros(tuple(shape), dtype=torch.float32,
+                               device=p.device)
+
+        return {"count": 0, **{which: _map(
+            lambda p, w=which: state(p, w), params)
+            for which in ("v_row", "v_col", "v")}}
+
+    def _chunks(self, shape, dims):
+        """Slices along axis 0 of at most `chunk_elements` elements each
+        (one slice of the whole leaf when axis 0 is factored)."""
+        if len(shape) < 2 or (dims is not None and 0 in dims):
+            return [slice(None)]
+        step = max(1, self.chunk_elements // max(1, math.prod(shape[1:])))
+        return [slice(i, i + step) for i in range(0, shape[0], step)]
+
+    def _scaled(self, g, dims, vr, vc, v):
+        """The update of scale_by_factored_rms from the new state."""
+        if dims is None:
+            return g * v.rsqrt()
+        d1, d0 = dims
+        row_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+        return (g * (vr / row_mean).rsqrt().unsqueeze(d0)
+                * vc.rsqrt().unsqueeze(d1))
+
+    @torch.no_grad()
+    def update_(self, grads: List[Optional[torch.Tensor]], opt_state,
+                params) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """One step, in place on `params` and the state.  `grads` are in
+        `_leaves(params)` order; each entry is set to None once its leaf
+        is updated, so a caller that holds no other reference frees it.
+        Returns (opt_state, raw grad norm)."""
+        count = opt_state["count"]
+        f32 = np.float32
+        decay = f32(1) - f32(count + 1) ** f32(-self.decay_rate)
+        keep, add = float(decay), float(f32(1) - decay)
+        lr = self.lr(count)
+        norm = _global_norm(grads)
+        for i, (p, vr, vc, v) in enumerate(zip(
+                _leaves(params), _leaves(opt_state["v_row"]),
+                _leaves(opt_state["v_col"]), _leaves(opt_state["v"]))):
+            g = grads[i]
+            dims = self._dims(p.shape)
+            chunks = self._chunks(p.shape, dims)
+            sumsq = torch.zeros((), dtype=torch.float32, device=p.device)
+            # Each chunk's temporaries are freed (del) before the next
+            # chunk allocates its own: the peak is one chunk's worth.
+            for c in chunks:                 # state, and sum of u^2
+                gsq = g[c].float().square().add_(self.eps)
+                if dims is None:
+                    v[c] = v[c] * keep + gsq * add
+                else:
+                    d1, d0 = dims
+                    vr[c] = vr[c] * keep + gsq.mean(d0) * add
+                    vc[c] = vc[c] * keep + gsq.mean(d1) * add
+                del gsq
+                u = self._scaled(g[c].float(), dims, vr[c], vc[c], v[c])
+                sumsq += torch.linalg.vector_norm(u).square()
+                del u
+            n = p.numel()
+            clip = torch.clamp(sumsq.div(n).sqrt() / self.clipping_threshold,
+                               min=1.0)
+            rms = torch.linalg.vector_norm(p, dtype=torch.float32) / n ** 0.5
+            step = rms.clamp(min=self.min_scale) * -lr / clip
+            for c in chunks:                 # apply
+                u = self._scaled(g[c].float(), dims, vr[c], vc[c], v[c])
+                p[c].addcmul_(u, step)
+                del u
+            grads[i] = g = None
+        return dict(opt_state, count=count + 1), norm
+
+
 def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
                    total_steps: int = 10_000, weight_decay: float = 0.1,
                    b1: float = 0.9, b2: float = 0.95,
                    grad_clip: float = 1.0, mu_dtype="bfloat16",
-                   kind: str = "adamw") -> AdamW:
+                   kind: str = "adamw"):
+    """The JAX package's optimizer: AdamW (`kind="adamw"`) or, for
+    `kind="adafactor"`, optax.adafactor's defaults on the same schedule
+    (weight_decay, b1, b2, grad_clip and mu_dtype apply to AdamW only)."""
     if kind == "adafactor":
-        raise NotImplementedError(
-            "Adafactor is not ported yet (ROADMAP Queue A: transcribe "
-            "optax.adafactor's defaults); use kind='adamw'")
+        return Adafactor(learning_rate, warmup_steps, total_steps)
     if kind != "adamw":
         raise ValueError(f"unknown optimizer kind {kind!r}")
     return AdamW(learning_rate, warmup_steps, total_steps, weight_decay,
@@ -149,7 +291,7 @@ class CompiledTrainStep:
     docstring)."""
 
     def __init__(self, cfg: transformer.TransformerConfig, mesh=None,
-                 optimizer: Optional[AdamW] = None,
+                 optimizer=None,
                  device: DeviceLike = None) -> None:
         if mesh is not None:
             raise NotImplementedError(
@@ -200,9 +342,9 @@ class CompiledTrainStep:
         with torch.enable_grad():
             loss, metrics = transformer.loss_fn(state.params, tokens,
                                                 self.cfg)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = list(torch.autograd.grad(loss, leaves))
         opt_state, grad_norm = self.optimizer.update_(
-            list(grads), state.opt_state, state.params)
+            grads, state.opt_state, state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, opt_state), metrics

@@ -109,6 +109,8 @@ FLASH_CASES = [  # dtype, B, Hq, Hkv, Sq, Sk, D, causal, nonzero dlse
     # that are no multiple of 132 (B2: 60, B3: 180).
     (torch.bfloat16, 1, 4, 1, 256, 256, 128, True, False),
     (torch.bfloat16, 3, 12, 4, 640, 640, 64, True, True),
+    # Mixtral's attention at the MoE training shapes (D 128, G 4).
+    (torch.bfloat16, 4, 32, 8, 2048, 2048, 128, True, False),
 ]
 
 

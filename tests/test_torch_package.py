@@ -58,6 +58,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
+    assert "ray_tpu_torch.serve.multiplex" in mods
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
@@ -102,3 +103,28 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     tree["layers"]["wq"] = np.zeros((1, 16, 2, 4), np.float32)
     with pytest.raises(ValueError, match="shape"):
         convert.params_from_jax(tree, cfg, device="cpu")
+
+
+def test_moe_and_adafactor_run_while_mesh_still_raises():
+    """MoE and Adafactor are ported (one device); the sharded path is
+    not."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train.train_step import (Adafactor, CompiledTrainStep,
+                                                make_optimizer)
+    cfg = transformer.TransformerConfig(
+        vocab_size=11, d_model=16, n_layers=1, n_heads=2, moe_experts=2,
+        moe_top_k=1, dtype=torch.float32, remat=False)
+    opt = make_optimizer(kind="adafactor", warmup_steps=1)
+    assert isinstance(opt, Adafactor)
+    step = CompiledTrainStep(cfg, optimizer=opt, device="cpu")
+    state, metrics = step(step.init_state(seed=0),
+                          step.shard_batch(np.ones((1, 5), np.int64)))
+    assert state.opt_state["count"] == 1
+    assert {"moe_aux", "total_loss"} <= set(metrics)
+    assert torch.isfinite(metrics["total_loss"])
+    with pytest.raises(NotImplementedError, match="A6"):
+        CompiledTrainStep(cfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        transformer.loss_fn(state.params,
+                            torch.ones((1, 5), dtype=torch.int64), cfg,
+                            mesh=object())

@@ -16,8 +16,9 @@ from ray_tpu_torch.devtools import leaksan
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import transformer as ttr
 from ray_tpu_torch.serve._admission import RequestRejectedError
-from ray_tpu_torch.serve.llm import (BlockAllocator, LLMDeployment,
-                                     PagedBatcher, RadixCache)
+from ray_tpu_torch.serve.llm import (BlockAllocator, ContinuousBatcher,
+                                     LLMDeployment, PagedBatcher,
+                                     RadixCache)
 
 CFG = dict(vocab_size=97, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
            d_ff=64, max_seq=128)
@@ -115,13 +116,23 @@ def test_deployment_entry_points_on_cpu(reference):
 def test_engine_rejects_what_it_cannot_serve(reference):
     tp, _ = reference
     tcfg = ttr.TransformerConfig(**_cfg_kwargs())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="paged_kv"):
         LLMDeployment(_cfg_kwargs(), params=tp, device="cpu",
-                      adapters={"a": {}})
-    bat = PagedBatcher(tp, tcfg, max_queue=1, **ENGINE)
+                      paged_kv=False, adapters={"a": {}})
+    dense = ContinuousBatcher(tp, tcfg, num_slots=2, max_len=48,
+                              prompt_pad=16, decode_chunk=4)
     try:
         with pytest.raises(ValueError, match="multiplexing"):
-            bat.submit(PROMPTS[0], 4, model_id="lora-a")
+            dense.submit(PROMPTS[0], 4, model_id="lora-a")
+    finally:
+        dense.stop()
+    # A spec that is not a dict (an object-store ref in the JAX engine)
+    # fails its request, naming the runtime it waits for.
+    bat = PagedBatcher(tp, tcfg, max_queue=1, adapters={"ref": object()},
+                       **ENGINE)
+    try:
+        with pytest.raises(NotImplementedError, match="A3"):
+            bat.generate(PROMPTS[0], 4, timeout=60, model_id="ref")
         with pytest.raises(ValueError, match="prompt budget"):
             bat.submit(list(range(17)), 4)
         bat.queue_depth = lambda: 1            # one request queued ahead
