@@ -18,7 +18,8 @@ script exits non-zero without a result line:
                end on and just past partition boundaries; bf16 also by
                the largest relative error over (sequence, head) rows
                (B4_ROW_REL), which a result with one partition left out
-               must fail; kernel / plain / SDPA times;
+               must fail; kernel / plain / SDPA times at llama-1b's
+               decode shape and at llama-8b's (H 32, Hkv 8, D 128);
   3. serve   — LLMDeployment at llama-1b's full width (16 layers, bf16,
                random weights from a seed): 16 concurrent requests, one
                prefix-cache re-send; every request finishes; the kernel's
@@ -57,11 +58,32 @@ script exits non-zero without a result line:
                cross-model shared prefix that must not;
  11. serve_lora_e2e — 2 layers in f32: the multiplexed engine's tokens
                equal single-model engines on merge_adapter's weights;
-               merge_adapter on the card against a float64 merge.
+               merge_adapter on the card against a float64 merge;
+ 12. serve_8b (int8) — LLMDeployment -> PagedBatcher on llama-8b at full
+               width and depth (32 layers, D 128) with int8 weights from
+               init_quantized_params, the serve phase's engine and
+               traffic: weight bytes beside serving_memory_report's,
+               peak memory, decode tokens/s, TTFT, B4 launches, a
+               profile of one decode dispatch; every
+               request finishes, the re-send hits, the per-layer weights
+               the decode loop uses are int8;
+ 13. serve_8b (bf16) — the same with f32 random weights cast to bf16 once,
+               leaf by leaf, after the int8 engine is freed;
+ 14. serve_8b_e2e — llama-8b widths at 2 layers, f32 compute on an int8
+               tree: the B4 and plain-attention engines give the same
+               greedy tokens;
+ 15. train_mesh — CompiledTrainStep on a one-device mesh at bench.py's
+               llama-1b setting (batch 4 x 2048, remat "names",
+               xent_chunk 2048, Adafactor, donate_state), 2 warm-up and
+               6 timed steps: step ms, tokens/s, MFU, peak memory, B1-B3
+               launches; then (train_mesh_equal) 2 layers in f32, the
+               mesh-of-one step equals mesh=None bit for bit over 2
+               steps.
 
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its main
-paths — serve and serve_lora for B4, train and train_moe for B1-B3, each
-counted from 0 just before its path and read just after — max error,
+paths — serve, serve_lora and serve_8b (int8, bf16) for B4, train,
+train_moe and train_mesh for B1-B3, each counted from 0 just before its
+path and read just after — max error, B4 also at llama-8b's shape,
 times two ways (see `time_ms`), the host's time to issue one call, the
 card's bound, the kernel / library ratio), the card's name and power
 limit as nvidia-smi reports them, and last `{"ok": true, "device":
@@ -89,6 +111,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 
 MAIN = dict(B=8, H=32, Hkv=8, D=64, bs=16, W=32)   # llama-1b serving
+LLAMA8B = dict(MAIN, D=128)                       # llama-8b serving
 MAIN_CTX = [0, 1, 17, 512, 100, 255, 333, 64]
 LONG_CTX = [0, 1, 64, 65, 4096, 1000, 128, 2049]
 # bf16 B4: the largest relative error over (sequence, head) rows, both
@@ -216,6 +239,8 @@ def phase_kernel(torch, pa):
         (torch.bfloat16, {}, MAIN_CTX, 2e-2),
         (torch.float32, {}, MAIN_CTX, 1e-5),
         (torch.bfloat16, dict(H=16, D=128), MAIN_CTX, 2e-2),
+        (torch.bfloat16, LLAMA8B, MAIN_CTX, 2e-2),         # llama-8b
+        (torch.float32, LLAMA8B, MAIN_CTX, 1e-5),
         (torch.float32, dict(H=16, D=128), MAIN_CTX, 1e-5),
         (torch.float32, dict(H=8), MAIN_CTX, 1e-5),              # G=1
         (torch.bfloat16, dict(H=64, D=128), MAIN_CTX, 2e-2),     # G=8
@@ -228,7 +253,7 @@ def phase_kernel(torch, pa):
         (torch.float32, dict(H=64, D=128, W=256), LONG_CTX, 1e-5),  # G=8
     ]
     checks = []
-    main_err = None
+    errs = {}
     for i, (dtype, over, ctx, tol) in enumerate(cases):
         shape = dict(MAIN, **over)
         args = kernel_inputs(torch, dtype, ctx=ctx, seed=i, **shape)
@@ -259,11 +284,19 @@ def phase_kernel(torch, pa):
         if not ok:
             raise AssertionError(f"kernel disagrees with plain version: "
                                  f"{checks[-1]}")
-        if i == 0:
-            main_err = err
-    # Times at the serving path's shapes, bf16.
+        if dtype == torch.bfloat16 and ctx == MAIN_CTX and \
+                shape in (MAIN, LLAMA8B):
+            errs.setdefault(shape["D"], err)
+    return checks, b4_timing(torch, pa, MAIN, errs[64]), \
+        b4_timing(torch, pa, LLAMA8B, errs[128])
+
+
+def b4_timing(torch, pa, shape, err):
+    """B4's times at a serving path's shapes (MAIN_CTX, bf16) beside its
+    plain version and SDPA on the pre-gathered window, its bound, and
+    `err`, its max abs error against the plain version there."""
     q, kp, vp, bt, lens = kernel_inputs(torch, torch.bfloat16,
-                                        ctx=MAIN_CTX, seed=0, **MAIN)
+                                        ctx=MAIN_CTX, seed=0, **shape)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kern = time_ms(torch, lambda: pa.paged_attention_kernel(
         q, kp, vp, bt, lens), flush)
@@ -271,8 +304,8 @@ def phase_kernel(torch, pa):
         q, kp, vp, bt, lens), flush)
     # Library yardstick: SDPA over the KV window already gathered dense
     # (GQA heads expanded, ctx mask); not used anywhere in the port.
-    B, H, Hkv, D, bs, W = (MAIN[k] for k in ("B", "H", "Hkv", "D", "bs",
-                                             "W"))
+    B, H, Hkv, D, bs, W = (shape[k] for k in ("B", "H", "Hkv", "D", "bs",
+                                              "W"))
     M = W * bs
     kd = kp[bt.long()].reshape(B, M, Hkv, D).transpose(1, 2)
     vd = vp[bt.long()].reshape(B, M, Hkv, D).transpose(1, 2)
@@ -291,11 +324,9 @@ def phase_kernel(torch, pa):
                    + blocks_read * 4 + B * 4)         # table, lens
     flops = 4 * ctx_sum * H * D
     bound_ms, bound_by = bound(flops, bytes_moved)
-    timing = {**times_of(kern, plain, lib),
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "bytes": bytes_moved, "flops": flops,
-              "max_abs_err": main_err}
-    return checks, timing
+    return {**times_of(kern, plain, lib), "shape": shape,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved, "flops": flops, "max_abs_err": err}
 
 
 # Flash-attention cases (B1, B2+B3 against their plain versions):
@@ -714,6 +745,54 @@ def check_request(req, vocab, max_new):
         raise AssertionError("token outside the vocabulary")
 
 
+def serve_traffic(pa, dep, max_new=64):
+    """The serve phase's traffic through `dep`'s engine: 16 concurrent
+    requests (`serve_prompts`), then a re-send of #5 that must hit 32
+    cached tokens; every request finishes with `length` and in-vocab
+    tokens; B4's launches (counted from 0 just before) cover every
+    decode step of every layer.  Returns (record, launches, prompts)."""
+    bat = dep.batcher
+    vocab, n_layers = bat.cfg.vocab_size, bat.cfg.n_layers
+    prompts = serve_prompts(vocab)
+    pa.launches = 0
+    steps0 = bat.steps
+    t_run = time.time()
+    reqs = [bat.submit(p, max_new) for p in prompts]
+    for r in reqs:
+        if not r.done.wait(600):
+            raise TimeoutError("request did not finish")
+    run_s = time.time() - t_run
+    again = bat.submit(prompts[5], max_new)
+    if not again.done.wait(600):
+        raise TimeoutError("re-sent request did not finish")
+    launches, steps = pa.launches, bat.steps - steps0
+    for r in reqs + [again]:
+        check_request(r, vocab, max_new)
+    if not (again.cache_hit and again.cached_tokens == 32):
+        raise AssertionError(f"re-send: cache_hit={again.cache_hit} "
+                             f"cached_tokens={again.cached_tokens}")
+    if launches < steps * n_layers or launches == 0:
+        raise AssertionError(f"{launches} kernel launches for {steps} "
+                             f"decode steps x {n_layers} layers")
+    ttft = sorted(r.ttft_s for r in reqs)
+    prefill = sorted(r.prefill_s for r in reqs)
+    stats = dep.stats()
+    out = {"requests": len(reqs) + 1,
+           "decode_tokens_per_s": len(reqs) * max_new / run_s,
+           "wall_s": run_s, "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+           "ttft_p95_ms": ttft[min(int(len(ttft) * 0.95),
+                                   len(ttft) - 1)] * 1e3,
+           "prefill_p50_ms": prefill[len(prefill) // 2] * 1e3,
+           "resend_cached_tokens": again.cached_tokens,
+           "resend_first_token_equal": reqs[5].tokens[0]
+           == again.tokens[0],
+           "resend_tokens_matching_first_run": sum(
+               a == b for a, b in zip(reqs[5].tokens, again.tokens)),
+           "prefix_cache_hits": stats["prefix_cache"]["hits"],
+           "decode_steps": steps, "kernel_launches": launches}
+    return out, launches, prompts
+
+
 def phase_serve(torch, pa):
     from ray_tpu_torch.models.transformer import num_params
     from ray_tpu_torch.serve.llm import LLMDeployment
@@ -723,54 +802,92 @@ def phase_serve(torch, pa):
     bat = dep.batcher
     wait_warm(bat)
     setup_s = time.time() - t0
-    vocab, max_new = kw["vocab_size"], 64
-    prompts = serve_prompts(vocab)
     try:
-        pa.launches = 0
-        steps0 = bat.steps
-        t_run = time.time()
-        reqs = [bat.submit(p, max_new) for p in prompts]
-        for r in reqs:
-            if not r.done.wait(600):
-                raise TimeoutError("request did not finish")
-        run_s = time.time() - t_run
-        again = bat.submit(prompts[5], max_new)
-        if not again.done.wait(600):
-            raise TimeoutError("re-sent request did not finish")
-        launches, steps = pa.launches, bat.steps - steps0
-        for r in reqs + [again]:
-            check_request(r, vocab, max_new)
-        if not (again.cache_hit and again.cached_tokens == 32):
-            raise AssertionError(f"re-send: cache_hit={again.cache_hit} "
-                                 f"cached_tokens={again.cached_tokens}")
-        n_layers = kw["n_layers"]
-        if launches < steps * n_layers or launches == 0:
-            raise AssertionError(f"{launches} kernel launches for {steps} "
-                                 f"decode steps x {n_layers} layers")
-        ttft = sorted(r.ttft_s for r in reqs)
-        prefill = sorted(r.prefill_s for r in reqs)
-        same = sum(a == b for a, b in zip(reqs[5].tokens, again.tokens))
-        stats = dep.stats()
+        traffic, launches, prompts = serve_traffic(pa, dep)
         out = {"phase": "serve", "model": "llama-1b", "dtype": "bfloat16",
-               "params": num_params(bat.params),
-               "setup_s": setup_s, "requests": len(reqs) + 1,
-               "decode_tokens_per_s": len(reqs) * max_new / run_s,
-               "wall_s": run_s, "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
-               "ttft_p95_ms": ttft[min(int(len(ttft) * 0.95),
-                                       len(ttft) - 1)] * 1e3,
-               "prefill_p50_ms": prefill[len(prefill) // 2] * 1e3,
-               "resend_cached_tokens": again.cached_tokens,
-               "resend_first_token_equal": reqs[5].tokens[0]
-               == again.tokens[0],
-               "resend_tokens_matching_first_run": same,
+               "params": num_params(bat.params), "setup_s": setup_s,
+               **traffic,
                "bf16_prefill_pad64_vs_pad48": bf16_sensitivity(
                    torch, bat.params, bat.cfg, prompts[5]),
-               "prefix_cache_hits": stats["prefix_cache"]["hits"],
-               "decode_steps": steps, "kernel_launches": launches,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     finally:
         dep.stop()
     return out, launches, bat.params, bat.cfg
+
+
+def cast_leaves_(tree, dtype):
+    """Cast every tensor of `tree` to `dtype` in place of the old one,
+    leaf by leaf, so the old tree and the new one never coexist whole."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            cast_leaves_(v, dtype)
+        else:
+            tree[key] = v.to(dtype)
+            del v
+
+
+def phase_serve_8b(torch, pa, quantized):
+    """llama-8b at full width and depth (32 layers, d_model 4096, 32 heads
+    / 8 kv heads, D 128, d_ff 14,336, vocab 128,256) through
+    LLMDeployment -> PagedBatcher with the serve phase's engine and
+    traffic: int8 weights from `init_quantized_params` (no f32 stage), or
+    f32 random weights cast to bf16 once, leaf by leaf.  The caller has
+    freed every earlier engine."""
+    import gc
+    from ray_tpu_torch.models import quantize as tq
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    kw = preset_kwargs(torch, dtype=torch.bfloat16, preset="llama-8b")
+    cfg = transformer.TransformerConfig(**kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.time()
+    if quantized:
+        params = tq.init_quantized_params(cfg, seed=0)
+    else:
+        params = transformer.init_params(cfg, seed=0)
+        cast_leaves_(params, cfg.dtype)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    dep = LLMDeployment(kw, params=params, **ENGINE)
+    del params
+    bat = dep.batcher
+    try:
+        wait_warm(bat)
+        setup_s = time.time() - t0
+        build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        weight_bytes = tq.param_bytes(bat.params)
+        layer = bat._dec._per_layer(bat.params)[0]
+        resident = {k: str(getattr(v, "dtype", None)).replace("torch.", "")
+                    for k, v in layer.items() if k in ("wq", "w_down")}
+        traffic, launches, _ = serve_traffic(pa, dep)
+        report = tq.serving_memory_report(cfg, ENGINE["num_slots"],
+                                          ENGINE["max_len"], quantized)
+        profile = phase_profile(torch, bat.params, cfg)
+        out = {"phase": "serve_8b", "model": "llama-8b",
+               "weights": "int8" if quantized else "bfloat16",
+               "compute_dtype": "bfloat16", "layers": cfg.n_layers,
+               "params": transformer.num_params(bat.params),
+               "init_s": init_s, "setup_s": setup_s,
+               "weight_bytes": weight_bytes,
+               "weight_gib": weight_bytes / 2 ** 30,
+               "memory_report": report,
+               "per_layer_weight_dtypes": resident, **traffic,
+               "allocated_before_gb": base_gb,
+               "build_peak_mem_gb": build_peak_gb,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "decode_profile": profile}
+        if quantized and set(resident.values()) != {"int8"}:
+            raise AssertionError(f"int8 engine serves {resident}")
+    finally:
+        dep.stop()
+    del dep, bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def bf16_sensitivity(torch, params, cfg, prompt):
@@ -794,7 +911,8 @@ def phase_profile(torch, params, cfg):
     """Where one decode dispatch's time goes: 8 decode steps of all 8
     slots at 128 cached tokens each, on the serving weights.  Wall time
     without the profiler; device busy time and the top kernels from
-    torch.profiler (CUPTI)."""
+    torch.profiler (CUPTI).  (serve_8b runs it on each llama-8b tree,
+    after its traffic: its B4 launches are not the path's.)"""
     from ray_tpu_torch.models import decoding
     B, W, bs, ctx, steps = 8, 32, 16, 128, 8
     caches = decoding.init_paged_caches(cfg, B, B * W, bs, W * bs,
@@ -851,10 +969,30 @@ def phase_profile(torch, params, cfg):
 
 def phase_e2e(torch, pa):
     from ray_tpu_torch.models import transformer
-    from ray_tpu_torch.serve.llm import PagedBatcher
     kw = preset_kwargs(torch, n_layers=2, dtype=torch.float32)
     cfg = transformer.TransformerConfig(**kw)
     params = transformer.init_params(cfg, seed=1, device="cuda")
+    return {"phase": "e2e", **engines_agree(torch, pa, cfg, params)}
+
+
+def phase_serve_8b_e2e(torch, pa):
+    """llama-8b widths cut to 2 layers, f32 compute on an int8 tree from
+    `init_quantized_params`: the B4 engine and the plain-attention engine
+    give the same greedy tokens."""
+    from ray_tpu_torch.models import quantize as tq
+    from ray_tpu_torch.models import transformer
+    kw = preset_kwargs(torch, n_layers=2, dtype=torch.float32,
+                       preset="llama-8b")
+    cfg = transformer.TransformerConfig(**kw)
+    params = tq.init_quantized_params(cfg, seed=1)
+    return {"phase": "serve_8b_e2e", "model": "llama-8b",
+            "weights": "int8", **engines_agree(torch, pa, cfg, params)}
+
+
+def engines_agree(torch, pa, cfg, params):
+    """A kernel engine and a plain-attention engine on `params` give the
+    same greedy tokens for 8 prompts and a cache-hit re-send (f32)."""
+    from ray_tpu_torch.serve.llm import PagedBatcher
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab_size,
                            rng.randint(16, 49)).tolist() for _ in range(8)]
@@ -890,7 +1028,7 @@ def phase_e2e(torch, pa):
     if mismatch:
         raise AssertionError(f"kernel and plain engines disagree on "
                              f"requests {mismatch}")
-    return {"phase": "e2e", "layers": 2, "dtype": "float32",
+    return {"layers": cfg.n_layers, "dtype": "float32",
             "requests": len(k_toks), "tokens_compared": sum(map(len,
                                                                  k_toks)),
             "kernel_engine_launches": k_launch,
@@ -1080,6 +1218,118 @@ def phase_train_e2e(torch, fa):
            "ok": ok}
     if not ok:
         raise AssertionError(f"kernel and plain training disagree: {out}")
+    return out
+
+
+# -- training on a mesh at bench.py's llama-1b setting -------------------------
+# bench.py:60-67 (batch 4 x 2048, remat "names", xent_chunk 2048,
+# attn_block_k 1024) and :89-95 (a one-device mesh, Adafactor with
+# total_steps 1000, donate_state); 2 warm-up and 6 timed steps as bench.py.
+MESH_TRAIN = dict(batch=4, seq=2048, warmup=2, timed=6)
+
+
+def phase_train_mesh(torch, fa):
+    """CompiledTrainStep(cfg, make_mesh(MeshSpec(), devices=[cuda:0]),
+    make_optimizer(total_steps=1000, kind="adafactor"), donate_state=True)
+    on llama-1b at full width, bf16: bench.py's own setting.  One fixed
+    batch of 4 x 2049 tokens from numpy seed 0; finite loss near
+    ln(vocab); each flash kernel launched once per layer per step."""
+    import math
+    from ray_tpu_torch.models.transformer import num_params
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.train import telemetry
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer)
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=True,
+                    remat_policy="names", xent_chunk=2048,
+                    attn_block_k=1024)
+    mesh = make_mesh(MeshSpec(), devices=[torch.device("cuda", 0)])
+    step = CompiledTrainStep(cfg, mesh, optimizer=make_optimizer(
+        total_steps=1000, kind="adafactor"), donate_state=True)
+    t0 = time.time()
+    state = step.init_state(seed=0)
+    batch = step.shard_batch(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32))
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    losses, norms, step_s, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    for _ in range(MESH_TRAIN["warmup"] + MESH_TRAIN["timed"]):
+        before = dict(fa.launches)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())          # syncs
+        step_s.append(time.perf_counter() - t)
+        norms.append(m["grad_norm"].item())
+        per_step.append({n: fa.launches[n] - before[n] for n in before})
+    launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(c != cfg.n_layers for d in per_step for c in d.values()):
+        raise AssertionError(f"flash launches per step {per_step}: each "
+                             f"kernel {cfg.n_layers} times a step")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss/grad_norm: {losses} {norms}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
+                             f"of ln(vocab) = {math.log(cfg.vocab_size)}")
+    p50 = statistics.median(step_s[MESH_TRAIN["warmup"]:])
+    tok_s = B * S / p50
+    fpt = step.flops_per_token(S)
+    peak = telemetry.peak_flops_for(torch.cuda.get_device_name(0))
+    out = {"phase": "train_mesh", "model": "llama-1b", "dtype": "bfloat16",
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "params": num_params(state.params), "batch": B, "seq": S,
+           "remat_policy": cfg.remat_policy, "xent_chunk": cfg.xent_chunk,
+           "optimizer": "adafactor (optax defaults) lr 3e-4 warmup 100 "
+                        "total 1000, donate_state",
+           "setup_s": setup_s, "losses": losses, "grad_norms": norms,
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_p50": p50 * 1e3,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "peak_flops": peak, "mfu": fpt * tok_s / peak,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": per_step[-1]}
+    del state, step, batch
+    return out, launches, mesh
+
+
+def phase_train_mesh_equal(torch, mesh):
+    """llama-1b widths at 2 layers in f32, batch 2 x 256, Adafactor (lr
+    1e-3, warmup 1): the mesh-of-one step and the mesh=None step from the
+    same seed give the same bits over 2 steps — loss, grad norm and every
+    parameter (a mesh of one device takes the one-device path)."""
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer, _leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S = 2, 256
+    cfg = train_cfg(torch, n_layers=2, dtype=torch.float32, max_seq=S,
+                    remat=True, remat_policy="names", xent_chunk=256)
+    tokens = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S + 1))
+    runs = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        step = CompiledTrainStep(cfg, m, optimizer=make_optimizer(
+            kind="adafactor", learning_rate=1e-3, warmup_steps=1,
+            total_steps=100))
+        state = step.init_state(seed=3)
+        batch = step.shard_batch(tokens)
+        metrics = []
+        for _ in range(2):
+            state, mt = step(state, batch)
+            metrics.append((mt["loss"].item(), mt["grad_norm"].item()))
+        runs[name] = (metrics, [p.detach() for p in _leaves(state.params)])
+        del state, step
+    (mm, mp), (nm, np_) = runs["mesh"], runs["none"]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(mp, np_)]
+    out = {"phase": "train_mesh_equal", "layers": 2, "dtype": "float32",
+           "steps": 2, "mesh_step": mm, "mesh_none_step": nm,
+           "metrics_equal": mm == nm, "params_equal": sum(equal),
+           "params": len(equal)}
+    if mm != nm or not all(equal):
+        raise AssertionError(f"the mesh-of-one step differs from "
+                             f"mesh=None: {out}")
     return out
 
 
@@ -1568,6 +1818,7 @@ def phase_serve_lora_e2e(torch, pa):
 
 def main() -> int:
     import torch
+    import torch.distributed
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1603,9 +1854,9 @@ def main() -> int:
           "dynamic_smem_bytes": smem})
 
     # 2. B4 vs plain
-    checks, timing = phase_kernel(torch, pa)
+    checks, timing, timing_8b = phase_kernel(torch, pa)
     emit({"phase": "kernel", "checks": checks, "main_shapes": MAIN,
-          "main_ctx": MAIN_CTX, **timing})
+          "main_ctx": MAIN_CTX, **timing, "llama_8b": timing_8b})
     # 3. serve at full width
     serve, launches, params, cfg = phase_serve(torch, pa)
     emit(serve)
@@ -1643,17 +1894,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 11. multiplexed serving end to end, against single-model engines
     emit(phase_serve_lora_e2e(torch, pa))
+    torch.cuda.empty_cache()
+    # 12-13. llama-8b at full depth through B4: int8, then bf16
+    serve_8b = {}
+    for quantized in (True, False):
+        out, serve_8b["int8" if quantized else "bf16"] = phase_serve_8b(
+            torch, pa, quantized)
+        emit(out)
+    # 14. int8 serving end to end, kernel vs plain
+    emit(phase_serve_8b_e2e(torch, pa))
+    torch.cuda.empty_cache()
+    # 15. training on a mesh at bench.py's llama-1b setting, and the
+    # mesh-of-one step against mesh=None bit for bit
+    train_mesh, mesh_launches, mesh = phase_train_mesh(torch, fa)
+    emit(train_mesh)
+    torch.cuda.empty_cache()
+    emit(phase_train_mesh_equal(torch, mesh))
+    torch.distributed.destroy_process_group()
 
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:195",
-        "launches": launches + lora_launches,
+        "launches": launches + lora_launches + sum(serve_8b.values()),
         "launches_by_path": {"serve": launches,
-                             "serve_lora": lora_launches},
+                             "serve_lora": lora_launches,
+                             "serve_8b_int8": serve_8b["int8"],
+                             "serve_8b_bf16": serve_8b["bf16"]},
         "max_abs_err": timing["max_abs_err"],
-        **{k: timing[k] for k in KERNEL_TIME_KEYS}}]
+        **{k: timing[k] for k in KERNEL_TIME_KEYS},
+        "at_llama_8b": {k: timing_8b[k] for k in
+                        ("max_abs_err", "shape") + KERNEL_TIME_KEYS}}]
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:272",
                 "flash_bwd_dkdv": "ray_tpu/ops/attention.py:318",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:348"}
@@ -1663,9 +1935,11 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": where,
-            "launches": train_launches[kname] + moe_launches[kname],
+            "launches": train_launches[kname] + moe_launches[kname]
+            + mesh_launches[kname],
             "launches_by_path": {"train": train_launches[kname],
-                                 "train_moe": moe_launches[kname]},
+                                 "train_moe": moe_launches[kname],
+                                 "train_mesh": mesh_launches[kname]},
             "max_abs_err": t["max_abs_err"],
             **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})

@@ -3,7 +3,9 @@
 `params_from_jax` takes the JAX parameter pytree as a dict of numpy
 arrays — the caller does `jax.tree.map(np.asarray, params)` on the JAX
 side, so this module never imports jax — and returns the port's
-parameter dict: same keys, same shapes, same dtype, on `device`.
+parameter dict: same keys, same shapes, same dtype, on `device`.  A
+quantized leaf (the JAX `QuantizedArray`, whose `q` and `s` that map
+turns into numpy) becomes the port's `QuantizedArray`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models.quantize import QuantizedArray
 from ray_tpu_torch.models.transformer import TransformerConfig, param_specs
 
 
@@ -34,7 +37,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
             if isinstance(spec, dict):
                 out[key] = convert(spec, node[key], where)
                 continue
-            arr = np.asarray(node[key])
+            leaf = node[key]
+            if hasattr(leaf, "q") and hasattr(leaf, "s"):
+                out[key] = _quantized(leaf, spec[0], where, dev)
+                continue
+            arr = np.asarray(leaf)
             if tuple(arr.shape) != tuple(spec[0]):
                 raise ValueError(f"{where}: shape {arr.shape} != "
                                  f"expected {spec[0]}")
@@ -43,3 +50,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
         return out
 
     return convert(param_specs(cfg), tree, "")
+
+
+def _quantized(leaf, shape, where: str, dev) -> QuantizedArray:
+    """int8 q of the weight's shape and an f32 scale of the same rank
+    whose axes are 1 or the weight's."""
+    q, s = np.asarray(leaf.q), np.asarray(leaf.s)
+    if tuple(q.shape) != tuple(shape) or q.dtype != np.int8:
+        raise ValueError(f"{where}: quantized q {q.dtype}{q.shape} != "
+                         f"expected int8{tuple(shape)}")
+    if s.ndim != q.ndim or any(a not in (1, b) for a, b in
+                               zip(s.shape, q.shape)):
+        raise ValueError(f"{where}: scale shape {s.shape} does not "
+                         f"broadcast per channel to {q.shape}")
+    return QuantizedArray(torch.tensor(q, device=dev),
+                          torch.tensor(s, device=dev))

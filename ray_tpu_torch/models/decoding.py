@@ -20,6 +20,12 @@ Parameters are f32 as in the JAX package, which casts each matrix to
 `cfg.dtype` at every use; `serving_params` makes those casts once (the
 result is identical), while embeddings, norms and the output projection
 stay f32 and the logits stay f32 x f32.
+
+A quantized tree (`models/quantize.py`) runs the same functions: its
+`QuantizedArray` leaves pass through `serving_params` unchanged (int8
+stays resident), `_per_layer` slices q and s together (`layer`), and each
+`.to(dtype)` / `.float()` / gather of a weight dequantizes at its use,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models.quantize import QuantizedArray
 from ray_tpu_torch.models.transformer import (TransformerConfig, _norm, _rope,
                                               _w_out)
 from ray_tpu_torch.ops import paged_attention as _pa
@@ -43,16 +50,21 @@ _COMPUTE_DTYPE_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 def serving_params(params: Dict[str, Any],
                    cfg: TransformerConfig) -> Dict[str, Any]:
     """`params` with the layer matrices cast to `cfg.dtype` once (the
-    decode path would otherwise recast all of them at every step)."""
-    layers = {k: (v.to(cfg.dtype) if k in _COMPUTE_DTYPE_KEYS else v)
+    decode path would otherwise recast all of them at every step).
+    Quantized matrices stay int8: they dequantize at each use."""
+    layers = {k: (v.to(cfg.dtype) if k in _COMPUTE_DTYPE_KEYS
+                  and not isinstance(v, QuantizedArray) else v)
               for k, v in params["layers"].items()}
     return {**params, "layers": layers}
 
 
-def _per_layer(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+def _per_layer(params: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked weights (a QuantizedArray stays
+    quantized: `v[i]` would gather and dequantize it)."""
     stacked = params["layers"]
     n = next(iter(stacked.values())).shape[0]
-    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+    return [{k: (v.layer(i) if isinstance(v, QuantizedArray) else v[i])
+             for k, v in stacked.items()} for i in range(n)]
 
 
 class DecodeCaches(NamedTuple):
@@ -352,6 +364,10 @@ def insert_slot(caches: DecodeCaches, slot, k, v, length, first_token
     last[slot] = first_token
     return caches._replace(lengths=lengths, last_token=last)
 
+
+def set_last_tokens(caches: DecodeCaches,
+                    tokens: torch.Tensor) -> DecodeCaches:
+    return caches._replace(last_token=tokens)
 
 
 # ===========================================================================

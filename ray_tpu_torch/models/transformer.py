@@ -11,10 +11,23 @@ package.
 Ported: the config, presets, init, the helpers the serving path uses
 (`_norm`, `_rope`, `_w_out`), and the training forward for llama and
 gpt2, dense or MoE, on one device: `_moe_block`, `_layer_body`,
-`forward_hidden_aux`, `forward_hidden`, `forward`, `fused_cross_entropy`
-and `loss_fn`.  Every layer reaches the flash kernels through
-`ops.attention.attention_with_lse` (`cfg.attn_impl`).  `mesh` must be
-None (the sharded path is ROADMAP A6; expert parallelism is A9).
+`forward_hidden_aux`, `forward_hidden`, `forward`, `fused_cross_entropy`,
+`loss_fn` and `logical_axes`.  Every layer reaches the flash kernels
+through `ops.attention.attention_with_lse` (`cfg.attn_impl`).
+
+Meshes.  `mesh=None` or a mesh of one device runs the one-device path
+(no DTensor).  On a larger mesh (dp, fsdp, tp) the parameters are
+DTensors placed by the sharding rules and tokens are split on the batch
+axis (`train_step.CompiledTrainStep.shard_batch`): each parameter is
+gathered over the mesh axes that split the batch (FSDP's all-gather; its
+gradient comes back reduce-scattered), the layers run as DTensor ops with
+tp-split heads and MLP columns (DTensor inserts the Megatron all-reduces
+at the constraints JAX's model sets), attention runs on each rank's local
+batch rows and heads through `local_map` (exact when tp divides
+n_kv_heads), and the embedding gather and cross-entropy run on each
+rank's rows against the whole table, their sums reduced over the batch
+axes.  sp, ep and pp axes, and MoE on a mesh, raise (ROADMAP Queue A, A5
+and A6).
 
 MoE.  `_moe_block` computes JAX's GShard-style block (top-k routing in
 f32, renormalised gates, a fixed capacity per expert, pairs past it
@@ -54,6 +67,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention_with_lse
+from ray_tpu_torch.parallel.mesh import mesh_sizes
+from ray_tpu_torch.parallel.sharding import (constrain, is_dtensor,
+                                             mesh_trivial, spec_for, use_mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +215,49 @@ def _map_specs(fn, specs):
             for k, v in specs.items()}
 
 
+def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Tree (matching init_params) of logical axis-name tuples."""
+    layer = {
+        "attn_norm": ("embed",),
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "mlp_norm": ("embed",),
+        "w_down": ("mlp", "embed"),
+    }
+    if cfg.moe_experts > 0:
+        layer["w_router"] = ("embed", None)
+        layer["w_gate"] = ("expert", "embed", "mlp")
+        layer["w_up"] = ("expert", "embed", "mlp")
+        layer["w_down"] = ("expert", "mlp", "embed")
+        if cfg.arch == "gpt2":
+            layer["attn_norm_b"] = ("embed",)
+            layer["mlp_norm_b"] = ("embed",)
+    elif cfg.arch == "llama":
+        layer["w_gate"] = ("embed", "mlp")
+        layer["w_up"] = ("embed", "mlp")
+    else:
+        layer["w_up"] = ("embed", "mlp")
+        layer["b_up"] = ("mlp",)
+        layer["b_down"] = ("embed",)
+        layer["attn_norm_b"] = ("embed",)
+        layer["mlp_norm_b"] = ("embed",)
+    # stacked layer axis is the scan ("layers") axis
+    layer = {k: ("layers",) + v for k, v in layer.items()}
+    axes: Dict[str, Any] = {
+        "tok_embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": ("embed",),
+    }
+    if cfg.arch == "gpt2":
+        axes["pos_embed"] = (None, "embed")
+        axes["final_norm_b"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # helpers shared with decoding
 # ---------------------------------------------------------------------------
@@ -223,6 +282,11 @@ def _rope(x, positions, theta):
     half = dh // 2
     freqs = torch.exp(-math.log(theta) * torch.arange(
         0, half, dtype=torch.float32, device=x.device) / half)
+    if is_dtensor(positions):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = positions.device_mesh
+        freqs = DTensor.from_local(freqs, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
     angles = positions[..., None].float() * freqs          # [B,S,half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -273,10 +337,67 @@ def _matmul_f32(a, b):
 # forward (training)
 # ---------------------------------------------------------------------------
 def _check_supported(cfg: TransformerConfig, mesh) -> None:
-    if mesh is not None:
+    """Raise for a mesh the port cannot run: sp (ring attention), ep or
+    pp above 1, MoE on more than one device, or a head split that does
+    not divide n_kv_heads (local attention would pair a rank's query
+    heads with another rank's kv heads)."""
+    if mesh_trivial(mesh):
+        return
+    sizes = mesh_sizes(mesh)
+    if sizes.get("sp", 1) > 1:
         raise NotImplementedError(
-            "ray_tpu_torch runs the model on one device (mesh=None); the "
-            "sharded path is ROADMAP Queue A, A6 (expert parallelism A9)")
+            "an sp mesh axis runs ring attention, which ray_tpu_torch has "
+            "not ported yet (ROADMAP Queue A, A5)")
+    for axis in ("ep", "pp"):
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"an {axis} mesh axis (expert parallelism, pipeline stages)"
+                " is not ported yet (ROADMAP Queue A, A6)")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "MoE on a mesh of more than one device: the expert capacity is "
+            "computed over the global batch, which a per-rank route would "
+            "not reproduce (ROADMAP Queue A, A6)")
+    split = math.prod(mesh.size(i) for i, p in enumerate(
+        spec_for(("batch", "kv_heads", "seq", None), mesh=mesh))
+        if getattr(p, "dim", None) == 1)
+    if cfg.kv_heads % split:
+        raise ValueError(
+            f"the mesh splits heads {split} ways, which does not divide "
+            f"n_kv_heads={cfg.kv_heads}: local attention would pair query "
+            "heads with another rank's kv heads")
+
+
+def _batch_dims(t) -> frozenset:
+    """Mesh dimensions on which DTensor `t` is split along its dim 0."""
+    return frozenset(i for i, p in enumerate(t.placements)
+                     if getattr(p, "dim", None) == 0)
+
+
+def _gathered(w, batch_dims):
+    """The whole of DTensor `w` as a plain tensor on every rank, for a
+    computation on the rank's batch rows: its gradient is a part to sum
+    over `batch_dims` and the same on the other mesh dimensions."""
+    from torch.distributed.tensor import Partial, Replicate
+    n = w.device_mesh.ndim
+    full = w.redistribute(w.device_mesh, [Replicate()] * n)
+    return full.to_local(grad_placements=[
+        Partial() if i in batch_dims else Replicate() for i in range(n)])
+
+
+def _compute_layout(params, batch_dims):
+    """Each DTensor parameter gathered over the mesh dimensions that split
+    the batch (FSDP's all-gather before use), its other placements kept."""
+    from torch.distributed.tensor import Replicate
+
+    def one(w):
+        pl = [Replicate() if i in batch_dims else p
+              for i, p in enumerate(w.placements)]
+        return w.redistribute(w.device_mesh, pl)
+
+    return {k: ({kk: one(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else one(v))
+            for k, v in params.items()}
 
 
 def _moe_route(cfg: TransformerConfig, ht, w_router):
@@ -360,10 +481,12 @@ def _attn_in(cfg: TransformerConfig, x, p, positions):
     if cfg.arch == "llama":
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return (constrain(q.transpose(1, 2), ("batch", "heads", "seq", None)),
+            constrain(k.transpose(1, 2), ("batch", "kv_heads", "seq", None)),
+            constrain(v.transpose(1, 2), ("batch", "kv_heads", "seq", None)))
 
 
-def _attention(cfg: TransformerConfig, q, k, v):
+def _local_attention(cfg: TransformerConfig, q, k, v):
     # lse is a residual of the flash backward only; its cotangent is None.
     o, _ = attention_with_lse(q, k, v, causal=True, impl=cfg.attn_impl,
                               block_q=cfg.attn_block_q,
@@ -371,10 +494,25 @@ def _attention(cfg: TransformerConfig, q, k, v):
     return o
 
 
+def _attention(cfg: TransformerConfig, q, k, v):
+    """Causal attention; DTensor q, k, v run on each rank's batch rows and
+    heads (kernel or plain, by `cfg.attn_impl`) through `local_map`."""
+    if not is_dtensor(q):
+        return _local_attention(cfg, q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pq = spec_for(("batch", "heads", "seq", None), mesh=mesh)
+    pk = spec_for(("batch", "kv_heads", "seq", None), mesh=mesh)
+    return local_map(functools.partial(_local_attention, cfg),
+                     out_placements=(pq,), in_placements=(pq, pk, pk),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def _attn_out_mlp(cfg: TransformerConfig, x, o, p):
     """wo, residual, norm, MLP or MoE, residual: -> (x [B,S,D], aux)."""
     o = o.transpose(1, 2)                                  # [B,S,H,Dh]
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    x = x + constrain(torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype)),
+                      ("batch", "seq", "embed"))
     rms = cfg.arch == "llama"
     h = _norm(x, p["mlp_norm"], p.get("mlp_norm_b"), cfg.norm_eps, rms)
     if cfg.moe_experts > 0:
@@ -387,10 +525,12 @@ def _attn_out_mlp(cfg: TransformerConfig, x, o, p):
     else:
         up = h @ p["w_up"].to(h.dtype) + p["b_up"].to(h.dtype)
         act = F.gelu(up.float(), approximate="tanh").to(h.dtype)
+    act = constrain(act, ("batch", "seq", "mlp"))
     down = act @ p["w_down"].to(act.dtype)
     if cfg.arch == "gpt2":
         down = down + p["b_down"].to(down.dtype)
-    return x + down, torch.zeros((), dtype=torch.float32, device=x.device)
+    return (x + constrain(down, ("batch", "seq", "embed")),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _layer_body(cfg: TransformerConfig, mesh, x, p, positions):
@@ -443,16 +583,54 @@ def _layers(params) -> list:
             zip(*(params["layers"][n].unbind(0) for n in names))]
 
 
+def _sharded_tokens(tokens, mesh):
+    """Tokens as a DTensor split on the batch axis (`CompiledTrainStep.
+    shard_batch` gives them so; a whole tensor is split here)."""
+    from torch.distributed.tensor import distribute_tensor
+    if is_dtensor(tokens):
+        return tokens
+    return distribute_tensor(tokens, mesh, spec_for(("batch", None),
+                                                    mesh=mesh))
+
+
+def _sharded_embed(params, tokens, cfg: TransformerConfig):
+    """Embeddings and positions of a batch-split DTensor of tokens: each
+    rank gathers its rows from the whole table."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = tokens.device_mesh, tokens.placements
+    rows = tokens.to_local()
+    table = _gathered(params["tok_embed"], _batch_dims(tokens))
+    x = DTensor.from_local(F.embedding(rows.long(), table).to(cfg.dtype),
+                           mesh, pl, run_check=False)
+    positions = DTensor.from_local(torch.arange(
+        rows.shape[1], dtype=torch.int32, device=rows.device).expand(
+            rows.shape), mesh, pl, run_check=False)
+    return x, positions
+
+
 def forward_hidden_aux(params: Dict[str, Any], tokens: torch.Tensor,
                        cfg: TransformerConfig, mesh=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] int -> (final-norm hidden [B, S, D], MoE aux loss
-    summed over the layers in f32 — zero for dense models)."""
+    summed over the layers in f32 — zero for dense models).  On a mesh
+    of more than one device `params` are DTensors (see the module
+    docstring) and the hidden states a batch-split DTensor."""
     _check_supported(cfg, mesh)
-    B, S = tokens.shape
+    if not mesh_trivial(mesh):
+        with use_mesh(mesh):
+            tokens = _sharded_tokens(tokens, mesh)
+            params = _compute_layout(params, _batch_dims(tokens))
+            return _hidden(params, cfg, mesh,
+                           *_sharded_embed(params, tokens, cfg))
     x = F.embedding(tokens.long(), params["tok_embed"]).to(cfg.dtype)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device).expand(tokens.shape)
+    return _hidden(params, cfg, mesh, x, positions)
+
+
+def _hidden(params, cfg: TransformerConfig, mesh, x, positions):
+    """`forward_hidden_aux` from the token embeddings x [B, S, D] on."""
+    S = x.shape[1]
     if cfg.arch == "gpt2":
         x = x + params["pos_embed"][:S][None].to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -492,14 +670,8 @@ def _xent_chunk(xc, tc, wd):
     return torch.where(tc >= 0, lse - tgt, 0.0).sum()
 
 
-def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
-                        targets: torch.Tensor,
-                        cfg: TransformerConfig) -> torch.Tensor:
-    """Chunked softmax cross-entropy that never builds the [B, S, V]
-    logits: one [chunk, V] f32 block at a time, recomputed in the backward
-    pass (`torch.utils.checkpoint` per chunk), so peak memory is one
-    block.  Targets are padded with -1 to whole chunks; the sum is
-    divided by the true token count."""
+def _xent_sum(x, w_out, targets, cfg: TransformerConfig) -> torch.Tensor:
+    """The summed nll of `fused_cross_entropy`, before the division."""
     B, S, D = x.shape
     N = B * S
     chunk = min(cfg.xent_chunk or N, N)
@@ -516,7 +688,36 @@ def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_xent_chunk, xf[sl], tf[sl], wd,
                                    use_reentrant=False)
-    return total / N
+    return total
+
+
+def _sharded_cross_entropy(x, w_out, targets, cfg: TransformerConfig):
+    """`fused_cross_entropy` of batch-split DTensors: each rank's rows
+    against the whole output matrix, the sums added over the batch axes
+    (a Partial DTensor made whole) and divided by the global count."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, dims = targets.device_mesh, _batch_dims(targets)
+    rows = [p if i in dims else Replicate()
+            for i, p in enumerate(targets.placements)]
+    local = _xent_sum(x.redistribute(mesh, rows).to_local(),
+                      _gathered(w_out, dims), targets.to_local(), cfg)
+    total = DTensor.from_local(local, mesh, [
+        Partial() if i in dims else Replicate() for i in range(mesh.ndim)],
+        run_check=False).full_tensor()
+    return total / targets.numel()
+
+
+def fused_cross_entropy(x: torch.Tensor, w_out: torch.Tensor,
+                        targets: torch.Tensor,
+                        cfg: TransformerConfig) -> torch.Tensor:
+    """Chunked softmax cross-entropy that never builds the [B, S, V]
+    logits: one [chunk, V] f32 block at a time, recomputed in the backward
+    pass (`torch.utils.checkpoint` per chunk), so peak memory is one
+    block.  Targets are padded with -1 to whole chunks; the sum is
+    divided by the true token count."""
+    if is_dtensor(targets):
+        return _sharded_cross_entropy(x, w_out, targets, cfg)
+    return _xent_sum(x, w_out, targets, cfg) / targets.numel()
 
 
 def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None
@@ -524,10 +725,16 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None
     """Next-token cross-entropy, plus `moe_aux_weight` x the MoE
     load-balancing loss for MoE models.  tokens: [B, S]; predicts
     tokens[:,1:].  Returns (loss, {"loss", "ppl"} and, for MoE,
-    {"moe_aux", "total_loss"}); "loss" is the cross-entropy alone."""
+    {"moe_aux", "total_loss"}); "loss" is the cross-entropy alone.  On a
+    mesh of more than one device the loss is a plain tensor, the same on
+    every rank, always from the chunked cross-entropy (one chunk for
+    `xent_chunk=None`)."""
+    _check_supported(cfg, mesh)
+    if not mesh_trivial(mesh):
+        tokens = _sharded_tokens(tokens, mesh)
     targets = tokens[:, 1:]
     x, aux = forward_hidden_aux(params, tokens[:, :-1], cfg, mesh)
-    if cfg.xent_chunk is None:
+    if cfg.xent_chunk is None and not is_dtensor(targets):
         B, S, D = x.shape
         logits = _matmul_f32(x.reshape(B * S, D).to(cfg.dtype),
                              _w_out(params, cfg).to(cfg.dtype))

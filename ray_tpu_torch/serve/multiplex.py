@@ -13,6 +13,8 @@ import contextvars
 
 import torch
 
+from ray_tpu_torch.models.quantize import QuantizedArray
+
 _current_model_id: "contextvars.ContextVar[str]" = contextvars.ContextVar(
     "rtt_multiplexed_model_id", default="")
 
@@ -49,6 +51,10 @@ def merge_adapter(base_params: dict, adapter: dict) -> dict:
 
     def _apply(tree: dict, name: str, delta: torch.Tensor) -> None:
         w = tree[name]
+        if isinstance(w, QuantizedArray):
+            raise TypeError(
+                f"cannot merge an adapter into quantized weight {name!r}: "
+                "merge into the full-precision weights, then quantize")
         tree[name] = w + delta.reshape(w.shape).to(w.device, w.dtype)
 
     def _f32(x, like: torch.Tensor) -> torch.Tensor:

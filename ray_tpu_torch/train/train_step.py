@@ -1,13 +1,25 @@
-"""One-device training step: the counterpart of `ray_tpu/train/train_step.py`.
+"""The training step: the counterpart of `ray_tpu/train/train_step.py`.
 
-`CompiledTrainStep(cfg)` runs `models.transformer.loss_fn` forward,
+`CompiledTrainStep(cfg, mesh)` runs `models.transformer.loss_fn` forward,
 autograd backward (the flash kernels B1-B3 on every layer) and the
-optimizer, eagerly, on one CUDA device — or on the CPU when the caller
-passes `device="cpu"`, as the tests do.  The JAX class compiles the whole
-step into one XLA program over a mesh; here `mesh` must be None (the
-sharded path is ROADMAP Queue A, A6), and the name is kept so callers and
-telemetry hooks (`_cache_size`, `flops_per_token`, `shard_batch`) carry
-over.
+optimizer, eagerly, on CUDA — or on the CPU when the caller passes
+`device="cpu"` or a CPU mesh, as the tests do.  The JAX class compiles
+the whole step into one XLA program over a mesh; the name is kept so
+callers and telemetry hooks (`_cache_size`, `flops_per_token`,
+`shard_batch`) carry over.
+
+Meshes (`parallel/mesh.py`).  `mesh=None` and a mesh of one device run
+the same one-device step, bit for bit.  On a larger mesh (dp, fsdp, tp)
+the parameters are DTensors placed by `transformer.logical_axes` and the
+rules (`parallel/sharding.py`), and the optimizer state as JAX's
+`_state_shardings` places it: trees that mirror the parameters (AdamW's
+moments) take their placements, everything else (Adafactor's factored
+statistics) is replicated, and the count is a Python int on every rank.
+Gradients arrive in the parameters' placements; AdamW updates each
+rank's shards elementwise, with the global gradient norm summed over
+every shard; Adafactor updates each leaf from its whole gathered
+gradient, one leaf at a time, and each rank applies its own part, so the
+factored statistics and block RMS are those of the whole leaf.
 
 `make_optimizer` is a plain-PyTorch transcription of the JAX package's
 optax chains on a warmup-cosine schedule: `kind="adamw"` (the default)
@@ -36,6 +48,9 @@ import torch
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import transformer
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, Rules,
+                                             is_dtensor, mesh_trivial,
+                                             spec_for, tree_specs)
 from ray_tpu_torch.train.telemetry import transformer_flops_per_token
 
 # Eager PyTorch compiles nothing per input shape: `_cache_size` is this
@@ -68,6 +83,53 @@ def _dtype(d) -> torch.dtype:
     return d if isinstance(d, torch.dtype) else getattr(torch, str(d))
 
 
+def _local(t):
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _local_region(shape, mesh, placements) -> Tuple[slice, ...]:
+    """The part of a global tensor of `shape` that this rank's shard
+    holds under `placements`, as slices: each Shard placement, in mesh
+    order, splits what the earlier ones left as `torch.chunk` does."""
+    start, stop = [0] * len(shape), list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if not p.is_shard():
+            continue
+        d = p.dim
+        size = -(-(stop[d] - start[d]) // mesh.size(i))
+        lo = min(start[d] + coord[i] * size, stop[d])
+        start[d], stop[d] = lo, min(lo + size, stop[d])
+    return tuple(slice(a, b) for a, b in zip(start, stop))
+
+
+def _region(t) -> Tuple[slice, ...]:
+    return _local_region(t.shape, t.device_mesh, t.placements)
+
+
+def _place(full: torch.Tensor, mesh, placements):
+    """The DTensor with these placements whose whole is `full` (the same
+    on every rank): each rank keeps its part, nothing is sent."""
+    from torch.distributed.tensor import DTensor
+    part = full[_local_region(full.shape, mesh, placements)]
+    return DTensor.from_local(part.contiguous(), mesh, placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def _vector_norm(t) -> torch.Tensor:
+    """The f32 2-norm of a tensor, or of a DTensor's whole: each rank's
+    shard's sum of squares, added over the mesh dims that split it."""
+    if not is_dtensor(t):
+        return torch.linalg.vector_norm(t, dtype=torch.float32)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    local = torch.linalg.vector_norm(t.to_local(), dtype=torch.float32)
+    return DTensor.from_local(local.square(), t.device_mesh, [
+        Partial() if p.is_shard() else Replicate() for p in t.placements],
+        run_check=False).full_tensor().sqrt()
+
+
 class _Scheduled:
     """The learning-rate schedule both optimizers read:
     optax.warmup_cosine_decay_schedule(0, lr, warmup, max(total,
@@ -94,9 +156,10 @@ class _Scheduled:
 
 
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    """sqrt of the sum of squares of every gradient (optax.global_norm),
+    over every shard of DTensor gradients."""
     return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+        [_vector_norm(g) for g in grads]))
 
 
 class AdamW(_Scheduled):
@@ -134,9 +197,9 @@ class AdamW(_Scheduled):
         norm = _global_norm(grads)
         keep = norm < self.grad_clip
         b1 = float(torch.tensor(self.b1, dtype=self.mu_dtype))
-        for p, g, mu, nu in zip(_leaves(params), grads,
-                                _leaves(opt_state["mu"]),
-                                _leaves(opt_state["nu"])):
+        for p, g, mu, nu in zip(*(map(_local, t) for t in (
+                _leaves(params), grads, _leaves(opt_state["mu"]),
+                _leaves(opt_state["nu"])))):
             g = torch.where(keep, g, g / norm * self.grad_clip)
             m = g * (1 - self.b1) + mu.float() * b1
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
@@ -236,12 +299,21 @@ class Adafactor(_Scheduled):
         keep, add = float(decay), float(f32(1) - decay)
         lr = self.lr(count)
         norm = _global_norm(grads)
-        for i, (p, vr, vc, v) in enumerate(zip(
-                _leaves(params), _leaves(opt_state["v_row"]),
-                _leaves(opt_state["v_col"]), _leaves(opt_state["v"]))):
+        for i, (p, *state) in enumerate(zip(_leaves(params), *(
+                _leaves(opt_state[w]) for w in ("v_row", "v_col", "v")))):
             g = grads[i]
             dims = self._dims(p.shape)
             chunks = self._chunks(p.shape, dims)
+            region = None
+            if is_dtensor(p):
+                # The whole gradient and state (the statistics are the
+                # whole leaf's); the chunks walk axis 0 only where this
+                # rank holds all of it.
+                g, region = g.full_tensor(), _region(p)
+                if region[0] != slice(0, p.shape[0]):
+                    chunks = [slice(None)]
+            vr, vc, v = whole = [t.full_tensor() if is_dtensor(t) else t
+                                 for t in state]
             sumsq = torch.zeros((), dtype=torch.float32, device=p.device)
             # Each chunk's temporaries are freed (del) before the next
             # chunk allocates its own: the peak is one chunk's worth.
@@ -260,12 +332,21 @@ class Adafactor(_Scheduled):
             n = p.numel()
             clip = torch.clamp(sumsq.div(n).sqrt() / self.clipping_threshold,
                                min=1.0)
-            rms = torch.linalg.vector_norm(p, dtype=torch.float32) / n ** 0.5
+            rms = _vector_norm(p) / n ** 0.5
             step = rms.clamp(min=self.min_scale) * -lr / clip
             for c in chunks:                 # apply
                 u = self._scaled(g[c].float(), dims, vr[c], vc[c], v[c])
-                p[c].addcmul_(u, step)
+                if region is None:
+                    p[c].addcmul_(u, step)
+                elif c == slice(None):       # this rank's part of u
+                    p.to_local().addcmul_(u[region], step)
+                else:                        # rows c, held whole here
+                    p.to_local()[c].addcmul_(
+                        u[(slice(None),) + region[1:]], step)
                 del u
+            for t, full in zip(state, whole):   # keep this rank's part
+                if is_dtensor(t):
+                    t.to_local().copy_(full[_region(t)])
             grads[i] = g = None
         return dict(opt_state, count=count + 1), norm
 
@@ -287,35 +368,77 @@ def make_optimizer(learning_rate: float = 3e-4, warmup_steps: int = 100,
 
 
 class CompiledTrainStep:
-    """The train step for one model on one device (eager; see module
-    docstring)."""
+    """The train step for one model, on one device or a mesh (eager; see
+    the module docstring).  `rules` maps logical axes to mesh axes
+    (default `sharding.DEFAULT_RULES`); `donate_state=False` leaves the
+    state passed in untouched (the step updates copies), `True` lets the
+    step update its tensors in place."""
 
     def __init__(self, cfg: transformer.TransformerConfig, mesh=None,
-                 optimizer=None,
+                 optimizer=None, rules: Optional[Rules] = None,
+                 donate_state: bool = True,
                  device: DeviceLike = None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "CompiledTrainStep runs on one device (mesh=None); the "
-                "sharded step is ROADMAP Queue A, A6")
+        transformer._check_supported(cfg, mesh)
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
+        self.rules = rules if rules is not None else DEFAULT_RULES
         self.optimizer = optimizer or make_optimizer()
+        self.donate_state = donate_state
+        self.sharded = not mesh_trivial(mesh)
+        if device is None and mesh is not None:
+            device = ("cpu" if mesh.device_type == "cpu" else
+                      torch.device(mesh.device_type,
+                                   torch.cuda.current_device()))
         self.device = resolve_device(device)
+        if self.sharded:
+            self.param_placements = tree_specs(
+                transformer.logical_axes(cfg), self.rules, mesh)
+            self.data_placements = spec_for(("batch", None), self.rules,
+                                            mesh)
 
     # -- public API --------------------------------------------------------
     def init_state(self, seed: int = 0,
                    params: Optional[Dict[str, Any]] = None) -> TrainState:
         """Fresh state: random parameters from `seed` (a torch.Generator;
         see transformer.init_params), or the given ones moved to this
-        step's device, with zeroed optimizer moments."""
+        step's device, with zeroed optimizer moments.  On a mesh every
+        rank makes the whole tensors and keeps its part, so every mesh
+        starts from the parameters of `mesh=None`."""
         if params is None:
             params = transformer.init_params(self.cfg, seed, self.device)
         else:
             params = _map(lambda p: p.detach().to(
                 self.device, self.cfg.param_dtype).clone(), params)
+        if self.sharded:
+            params = _zip_map(lambda p, pl: _place(p, self.mesh, pl),
+                              params, self.param_placements)
         for p in _leaves(params):
             p.requires_grad_(True)
-        return TrainState(0, params, self.optimizer.init(params))
+        opt_state = self.optimizer.init(params)
+        if self.sharded:
+            opt_state = self._place_state(opt_state, params)
+        return TrainState(0, params, opt_state)
+
+    def _place_state(self, opt_state, params):
+        """JAX's `_state_shardings`: a tree that mirrors the parameters
+        (same keys, same shapes) takes their placements, any other tensor
+        is replicated; counts stay Python ints."""
+        from torch.distributed.tensor import Replicate
+        shapes = [p.shape for p in _leaves(params)]
+        replicated = [Replicate()] * self.mesh.ndim
+
+        def place(t, pl):
+            return t if is_dtensor(t) else _place(t, self.mesh, pl)
+
+        out = {}
+        for key, node in opt_state.items():
+            if not isinstance(node, dict):
+                out[key] = node
+            elif [t.shape for t in _leaves(node)] == shapes:
+                out[key] = _zip_map(place, node, self.param_placements)
+            else:
+                out[key] = _map(lambda t: place(t, replicated), node)
+        return out
 
     def _cache_size(self) -> int:
         """Compiled-variant count, telemetry's compile detector: eager
@@ -332,20 +455,44 @@ class CompiledTrainStep:
             n_params, self.cfg.n_layers, seq, self.cfg.d_model)
 
     def shard_batch(self, tokens) -> torch.Tensor:
-        """Tokens [B, S+1] as an int64 tensor on this step's device."""
-        return torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
-                               device=self.device)
+        """Tokens [B, S+1] as an int64 tensor on this step's device; on a
+        mesh, a DTensor split on the batch axis only (each rank keeps its
+        rows of the whole batch it is given)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                 device=self.device)
+        if not self.sharded:
+            return tokens
+        return _place(tokens, self.mesh, self.data_placements)
 
     def __call__(self, state: TrainState, tokens: torch.Tensor
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if not self.donate_state:
+            state = _copy_state(state)
         leaves = _leaves(state.params)
         with torch.enable_grad():
             loss, metrics = transformer.loss_fn(state.params, tokens,
-                                                self.cfg)
+                                                self.cfg, self.mesh)
             grads = list(torch.autograd.grad(loss, leaves))
+        if self.sharded:      # summed parts -> the parameters' placements
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
         opt_state, grad_norm = self.optimizer.update_(
             grads, state.opt_state, state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, opt_state), metrics
 
+
+def _zip_map(fn, tree, other):
+    """fn over the leaves of two trees of the same keys."""
+    return {k: (_zip_map(fn, v, other[k]) if isinstance(v, dict)
+                else fn(v, other[k])) for k, v in tree.items()}
+
+
+def _copy_state(state: TrainState) -> TrainState:
+    """A copy of `state` that the step can update in place."""
+    params = _map(lambda p: p.detach().clone().requires_grad_(True),
+                  state.params)
+    opt_state = {k: (_map(lambda t: t.clone(), v) if isinstance(v, dict)
+                     else v) for k, v in state.opt_state.items()}
+    return TrainState(state.step, params, opt_state)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import attention as ta
+from test_torch_transformer import in_threads
 
 # name -> (B, Hq, Hkv, Sq, Sk, D, causal)
 CASES = {
@@ -47,22 +48,28 @@ def jax_results():
     import jax
     import jax.numpy as jnp
     from ray_tpu.ops import attention as ja
-    out = {}
-    for name in CASES:
+
+    def run(name):
         q, k, v, do, dlse, causal = _inputs(name)
 
         def f(q_, k_, v_, causal=causal):
             return ja.flash_attention_with_lse(q_, k_, v_, causal=causal,
                                                block_q=BLOCK, block_k=BLOCK)
 
-        (o, lse), vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
-        grads = {}
-        for mode in DLSE:
-            dl = dlse if mode == "nonzero" else np.zeros_like(dlse)
-            grads[mode] = [np.asarray(g) for g in
-                           vjp((jnp.asarray(do), jnp.asarray(dl)))]
-        out[name] = (np.asarray(o), np.asarray(lse), grads)
-    return out
+        @jax.jit
+        def both(q_, k_, v_, do_, dlse_, f=f):
+            # Forward and the vjp under both dlse modes (DLSE order, one
+            # vmapped backward) in one program: eager dispatch of the
+            # interpreted kernels costs more than compiling them.
+            (o, lse), vjp = jax.vjp(f, q_, k_, v_)
+            return o, lse, jax.vmap(vjp)((
+                jnp.stack([do_, do_]),
+                jnp.stack([jnp.zeros_like(dlse_), dlse_])))
+
+        o, lse, grads = jax.tree.map(np.asarray, both(q, k, v, do, dlse))
+        return o, lse, {m: [g[i] for g in grads] for i, m in enumerate(DLSE)}
+
+    return in_threads(run, CASES)
 
 
 def _flat(x):

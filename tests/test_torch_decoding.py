@@ -1,5 +1,5 @@
 """Decoding parity: ray_tpu_torch/models/decoding.py against
-ray_tpu/models/decoding.py on the same weights (JAX init_params moved
+ray_tpu/models/decoding.py on the same weights (drawn with numpy, moved
 across with convert.params_from_jax) and the same packed uploads, at a
 tiny f32 size on the CPU, for the llama and gpt2 archs.
 
@@ -14,6 +14,7 @@ import torch
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import decoding as tdec
 from ray_tpu_torch.models import transformer as ttr
+from test_torch_transformer import in_threads, numpy_params
 
 CFG = dict(vocab_size=97, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
            d_ff=64, max_seq=128)
@@ -35,12 +36,11 @@ def _cfgs(arch):
 
 def _params(arch):
     import jax
-    from ray_tpu.models.transformer import init_params
-    jcfg, tcfg = _cfgs(arch)
-    jp = init_params(jcfg, jax.random.PRNGKey(3))
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
-                                 device="cpu")
-    return jp, tp
+    import jax.numpy as jnp
+    _, tcfg = _cfgs(arch)
+    weights = numpy_params(tcfg, 3)
+    tp = convert.params_from_jax(weights, tcfg, device="cpu")
+    return jax.tree.map(jnp.asarray, weights), tp
 
 
 def _paged_packs():
@@ -122,11 +122,11 @@ def _run_jax(arch, jp):
 def parity():
     """Per arch: (torch params, JAX paged runs, JAX dense run, JAX
     params), the JAX side computed once."""
-    out = {}
-    for arch in ARCHS:
+    def run(arch):
         jp, tp = _params(arch)
-        out[arch] = (tp,) + _run_jax(arch, jp) + (jp,)
-    return out
+        return (tp,) + _run_jax(arch, jp) + (jp,)
+
+    return in_threads(run, ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -206,15 +206,15 @@ def test_dense_prefill_and_insert_slot_match_jax(parity):
 
 @pytest.mark.parametrize("rms", [True, False])
 def test_norm_matches_jax(rms):
-    import jax.numpy as jnp
+    import jax
     from ray_tpu.models.transformer import _norm as jnorm
     rng = np.random.RandomState(0)
     x, w, b = (rng.randn(2, 3, 32).astype(np.float32),
                rng.randn(32).astype(np.float32),
                rng.randn(32).astype(np.float32))
     bias = None if rms else b
-    want = np.asarray(jnorm(jnp.asarray(x), jnp.asarray(w),
-                            None if rms else jnp.asarray(b), 1e-5, rms))
+    want = np.asarray(jax.jit(jnorm, static_argnums=(3, 4))(
+        x, w, None if rms else b, 1e-5, rms))
     got = ttr._norm(torch.from_numpy(x), torch.from_numpy(w),
                     None if bias is None else torch.from_numpy(bias),
                     1e-5, rms).numpy()
@@ -222,12 +222,12 @@ def test_norm_matches_jax(rms):
 
 
 def test_rope_matches_jax():
-    import jax.numpy as jnp
+    import jax
     from ray_tpu.models.transformer import _rope as jrope
     rng = np.random.RandomState(1)
     x = rng.randn(2, 5, 4, 16).astype(np.float32)
     pos = (np.arange(5)[None] + np.array([[0], [37]])).astype(np.int32)
-    want = np.asarray(jrope(jnp.asarray(x), jnp.asarray(pos), 5e5))
+    want = np.asarray(jax.jit(jrope, static_argnums=2)(x, pos, 5e5))
     got = ttr._rope(torch.from_numpy(x), torch.from_numpy(pos),
                     5e5).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
@@ -237,13 +237,12 @@ def test_rope_matches_jax():
 def test_mlp_matches_jax(parity, arch):
     """llama: silu gate; gpt2: jax.nn.gelu's tanh approximation."""
     import jax
-    import jax.numpy as jnp
     from ray_tpu.models import decoding as jdec
     jcfg, tcfg = _cfgs(arch)
     tp, jp = parity[arch][0], parity[arch][3]
-    jlayer = jax.tree.map(lambda a: a[0], jp["layers"])
     tlayer = {k: v[0] for k, v in tp["layers"].items()}
     x = np.random.RandomState(2).randn(2, 3, 32).astype(np.float32)
-    want = np.asarray(jdec._mlp(jlayer, jnp.asarray(x), jcfg))
+    want = np.asarray(jax.jit(lambda layers, x_: jdec._mlp(
+        jax.tree.map(lambda a: a[0], layers), x_, jcfg))(jp["layers"], x))
     got = tdec._mlp(tlayer, torch.from_numpy(x), tcfg).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

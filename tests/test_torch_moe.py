@@ -17,6 +17,7 @@ import torch
 
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import transformer as tt
+from test_torch_transformer import in_threads, numpy_params
 
 ARCHS = {
     # capacity 1.0 at T 32: cap 16 per expert, so a skewed router drops.
@@ -67,9 +68,35 @@ def jax_side():
     def jcfg(kw):
         return jt.TransformerConfig(**{**kw, "dtype": jnp.float32})
 
-    out = {}
-    cfg = jcfg(BLOCK)
-    params = jt.init_params(cfg, jax.random.PRNGKey(3))
+    def arch_side(arch):
+        cfg = jcfg(ARCHS[arch])
+        params = numpy_params(_port_cfg(ARCHS[arch]), 0)
+        tokens = jnp.asarray(_tokens(arch))
+
+        def everything(p):
+            logits = jt.forward(p, tokens[:, :-1], cfg)
+            (loss, metrics), grads = jax.value_and_grad(
+                lambda p_: jt.loss_fn(p_, tokens, cfg), has_aux=True)(p)
+            return logits, loss, metrics, grads
+
+        got = jax.tree.map(np.asarray, jax.jit(everything)(params))
+        return {"params": params, "logits": got[0], "loss": float(got[1]),
+                "metrics": {k: float(v) for k, v in got[2].items()},
+                "grads": got[3]}
+
+    return in_threads(lambda k: _jax_block(jcfg(BLOCK)) if k == "block"
+                      else arch_side(k), ["block", *ARCHS])
+
+
+def _jax_block(cfg):
+    """The JAX block's out, aux and vjp on the BLOCK inputs, and its out
+    at BLOCK_NO_DROP's capacity, where nothing drops."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.models import transformer as jt
+    no_drop_cfg = dataclasses.replace(cfg, moe_capacity_factor=BLOCK_NO_DROP[
+        "moe_capacity_factor"])
+    params = numpy_params(_port_cfg(BLOCK), 3)
     p0 = {k: params["layers"][k][0] for k in MOE_KEYS}
     rng = np.random.RandomState(4)
     h = rng.randn(*BLOCK_SHAPE).astype(np.float32)
@@ -80,34 +107,15 @@ def jax_side():
     def block(h_, p_, cot_):
         (o_, aux_), vjp = jax.vjp(
             lambda a, b: jt._moe_block(cfg, None, a, b), h_, p_)
-        no_drop_ = jt._moe_block(jcfg(BLOCK_NO_DROP), None, h_, p_)[0]
+        no_drop_ = jt._moe_block(no_drop_cfg, None, h_, p_)[0]
         return o_, aux_, vjp((cot_, jnp.float32(aux_cot))), no_drop_
 
     o, aux, (gh, gp), no_drop = block(jnp.asarray(h), p0, jnp.asarray(cot))
-    out["block"] = {
-        "h": h, "cot": cot, "aux_cot": aux_cot,
-        "p": jax.tree.map(np.asarray, p0), "out": np.asarray(o),
-        "aux": float(aux), "grad_h": np.asarray(gh),
-        "grad_p": jax.tree.map(np.asarray, gp),
-        "out_no_drop": np.asarray(no_drop)}
-
-    for arch, kw in ARCHS.items():
-        cfg = jcfg(kw)
-        params = jt.init_params(cfg, jax.random.PRNGKey(0))
-        tokens = jnp.asarray(_tokens(arch))
-
-        def everything(p, cfg=cfg, tokens=tokens):
-            logits = jt.forward(p, tokens[:, :-1], cfg)
-            (loss, metrics), grads = jax.value_and_grad(
-                lambda p_: jt.loss_fn(p_, tokens, cfg), has_aux=True)(p)
-            return logits, loss, metrics, grads
-
-        got = jax.tree.map(np.asarray, jax.jit(everything)(params))
-        out[arch] = {"params": jax.tree.map(np.asarray, params),
-                     "logits": got[0], "loss": float(got[1]),
-                     "metrics": {k: float(v) for k, v in got[2].items()},
-                     "grads": got[3]}
-    return out
+    return {"h": h, "cot": cot, "aux_cot": aux_cot,
+            "p": p0, "out": np.asarray(o),
+            "aux": float(aux), "grad_h": np.asarray(gh),
+            "grad_p": jax.tree.map(np.asarray, gp),
+            "out_no_drop": np.asarray(no_drop)}
 
 
 def test_moe_block_matches_jax_with_drops(jax_side):

@@ -17,6 +17,7 @@ from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import transformer as tt
 from ray_tpu_torch.serve import multiplex
 from ray_tpu_torch.serve.llm import LLMDeployment, PagedBatcher
+from test_torch_transformer import numpy_params
 
 CFG = dict(vocab_size=97, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
            d_ff=64, max_seq=128)
@@ -52,11 +53,12 @@ def jax_side():
     for PROMPT under the base model and each adapter."""
     import jax
     import jax.numpy as jnp
-    from ray_tpu.models.transformer import TransformerConfig, init_params
+    from ray_tpu.models.transformer import TransformerConfig
     from ray_tpu.serve import multiplex as jmux
     from ray_tpu.serve.llm import PagedBatcher as JaxPaged
     cfg = TransformerConfig(dtype=jnp.float32, remat=False, **CFG)
-    params = init_params(cfg, jax.random.PRNGKey(0))
+    params = jax.tree.map(jnp.asarray, numpy_params(
+        tt.TransformerConfig(**CFG), 0))
     adapters = _adapters()
     merged = {mid: jax.tree.map(np.asarray, jmux.merge_adapter(params, spec))
               for mid, spec in adapters.items()}

@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert "ray_tpu_torch.serve.multiplex" in mods
+    assert {"ray_tpu_torch.serve.multiplex", "ray_tpu_torch.models.quantize",
+            "ray_tpu_torch.parallel.mesh",
+            "ray_tpu_torch.parallel.sharding"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
@@ -106,8 +108,8 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 
 
 def test_moe_and_adafactor_run_while_mesh_still_raises():
-    """MoE and Adafactor are ported (one device); the sharded path is
-    not."""
+    """MoE and Adafactor are ported (one device); MoE on a mesh of more
+    than one device is not (expert parallelism, ROADMAP A6)."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.train.train_step import (Adafactor, CompiledTrainStep,
                                                 make_optimizer)
@@ -122,9 +124,11 @@ def test_moe_and_adafactor_run_while_mesh_still_raises():
     assert state.opt_state["count"] == 1
     assert {"moe_aux", "total_loss"} <= set(metrics)
     assert torch.isfinite(metrics["total_loss"])
+    from test_torch_mesh import abstract_mesh
+    dp2 = abstract_mesh(dict(dp=2))            # MoE on a mesh: A6
     with pytest.raises(NotImplementedError, match="A6"):
-        CompiledTrainStep(cfg, mesh=object(), device="cpu")
+        CompiledTrainStep(cfg, mesh=dp2, device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         transformer.loss_fn(state.params,
                             torch.ones((1, 5), dtype=torch.int64), cfg,
-                            mesh=object())
+                            mesh=dp2)

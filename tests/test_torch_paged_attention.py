@@ -39,15 +39,16 @@ def _inputs(groups, seed=0):
 def jax_outputs():
     """JAX kernel (interpret mode) and reference outputs per group size,
     computed once."""
-    import jax.numpy as jnp
+    import jax
     from ray_tpu.ops import paged_attention as jpa
-    out = {}
-    for g in GROUPS:
-        args = [jnp.asarray(a) for a in _inputs(g)]
-        out[g] = (np.asarray(jpa.paged_attention_kernel(*args,
-                                                        interpret=True)),
-                  np.asarray(jpa.paged_attention_reference(*args)))
-    return out
+
+    @jax.jit
+    def both(*args):
+        return (jpa.paged_attention_kernel(*args, interpret=True),
+                jpa.paged_attention_reference(*args))
+
+    return {g: jax.tree.map(np.asarray, both(*_inputs(g)))
+            for g in GROUPS}
 
 
 @pytest.mark.parametrize("groups", GROUPS)

@@ -19,6 +19,7 @@ from ray_tpu_torch.serve._admission import RequestRejectedError
 from ray_tpu_torch.serve.llm import (BlockAllocator, ContinuousBatcher,
                                      LLMDeployment, PagedBatcher,
                                      RadixCache)
+from test_torch_transformer import numpy_params
 
 CFG = dict(vocab_size=97, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
            d_ff=64, max_seq=128)
@@ -36,12 +37,12 @@ def reference():
     import jax
     import jax.numpy as jnp
     from ray_tpu.models import decoding as jdec
-    from ray_tpu.models.transformer import TransformerConfig, init_params
+    from ray_tpu.models.transformer import TransformerConfig
     jcfg = TransformerConfig(dtype=jnp.float32, remat=False, **CFG)
-    jp = init_params(jcfg, jax.random.PRNGKey(7))
     tcfg = ttr.TransformerConfig(dtype=torch.float32, **CFG)
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
-                                 device="cpu")
+    weights = numpy_params(tcfg, 7)
+    jp = jax.tree.map(jnp.asarray, weights)
+    tp = convert.params_from_jax(weights, tcfg, device="cpu")
     P, N = 16, len(PROMPTS)
     W = jdec.paged_table_width(48, BS)
     caches = jdec.init_paged_caches(jcfg, N, N * W, BS, 48)

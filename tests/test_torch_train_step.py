@@ -25,6 +25,7 @@ from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import transformer as tt
 from ray_tpu_torch.train import telemetry
 from ray_tpu_torch.train import train_step as ts
+from test_torch_transformer import in_threads, numpy_params
 
 MODEL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
              n_kv_heads=2, max_seq=32, arch="llama")
@@ -72,14 +73,19 @@ def jax_runs():
     from ray_tpu.parallel.mesh import MeshSpec, make_mesh
     from ray_tpu.train import train_step as jts
     mesh = make_mesh(MeshSpec(), devices=jax.devices()[:1])
-    out = {}
-    for name, (model, over) in CASES.items():
+
+    def run(name):
+        model, over = CASES[name]
         cfg = jt.TransformerConfig(**model, dtype=jnp.float32)
         step = jts.CompiledTrainStep(
             cfg, mesh, optimizer=jts.make_optimizer(**OPT, **over),
             donate_state=False)
-        state = step.init_state(seed=0)
-        init = jax.tree.map(np.asarray, state.params)
+        # The step's state from numpy weights (the jitted init_state
+        # would compile JAX's random kernels for nothing compared here).
+        init = numpy_params(tt.TransformerConfig(**model), 0)
+        state = jax.jit(lambda p, step=step: jts.TrainState(
+            jnp.zeros((), jnp.int32), p, step.optimizer.init(p)),
+            out_shardings=step.state_shardings)(init)
         batch = step.shard_batch(_tokens())
         metrics = []
         for _ in range(STEPS):
@@ -90,9 +96,10 @@ def jax_runs():
             fs = state.opt_state[0]
             factored = {key: jax.tree.map(np.asarray, getattr(fs, key))
                         for key in ("v_row", "v_col", "v")}
-        out[name] = (init, metrics, jax.tree.map(np.asarray, state.params),
-                     factored)
-    return out
+        return (init, metrics, jax.tree.map(np.asarray, state.params),
+                factored)
+
+    return in_threads(run, CASES)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -214,8 +221,13 @@ def test_step_api_and_unported_options():
     assert isinstance(ada, ts.Adafactor)
     with pytest.raises(ValueError, match="optimizer kind"):
         ts.make_optimizer(kind="sgd")
-    with pytest.raises(NotImplementedError, match="A6"):
-        ts.CompiledTrainStep(cfg, mesh=object(), device="cpu")
+    from test_torch_mesh import abstract_mesh
+    with pytest.raises(NotImplementedError, match="A6"):       # pipeline
+        ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(pp=2, dp=2)),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):       # ring attn
+        ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(sp=2)),
+                             device="cpu")
 
 
 def test_peak_flops_known_cards_only():

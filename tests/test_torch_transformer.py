@@ -38,6 +38,32 @@ def _port_cfg(arch, **kw):
                                    **kw})
 
 
+def numpy_params(cfg, seed):
+    """Parameters of `cfg`'s layout (the JAX package's tree has the same
+    keys and shapes) drawn with numpy: each init's normal std, ones and
+    zeros, in f32.  Both packages take them as given, so no JAX random
+    kernel is compiled for a test's weights."""
+    rng = np.random.RandomState(seed)
+
+    def make(spec):
+        shape, init = spec
+        if init in ("ones", "zeros"):
+            return getattr(np, init)(shape, np.float32)
+        return (rng.standard_normal(shape) * init).astype(np.float32)
+
+    return tt._map_specs(make, tt.param_specs(cfg))
+
+
+def in_threads(fn, items):
+    """{item: fn(item)}, each call in a thread of its own: XLA compiles
+    without holding the GIL, so a fixture's JAX programs compile side by
+    side."""
+    from concurrent.futures import ThreadPoolExecutor
+    items = list(items)
+    with ThreadPoolExecutor(len(items)) as pool:
+        return dict(zip(items, pool.map(fn, items)))
+
+
 def _leaves(tree, prefix=""):
     for key in sorted(tree):
         node = tree[key]
@@ -54,10 +80,10 @@ def jax_side():
     import jax
     import jax.numpy as jnp
     from ray_tpu.models import transformer as jt
-    out = {}
-    for arch in ARCHS:
+
+    def run(arch):
         cfg = jt.TransformerConfig(**{**ARCHS[arch], "dtype": jnp.float32})
-        params = jt.init_params(cfg, jax.random.PRNGKey(0))
+        params = numpy_params(_port_cfg(arch), 0)
         tokens = jnp.asarray(_tokens(arch))
         cfgs = {m: dataclasses.replace(cfg, xent_chunk=c)
                 for m, c in XENT.items()}
@@ -72,12 +98,13 @@ def jax_side():
             return out
 
         got = jax.tree.map(np.asarray, jax.jit(everything)(params))
-        res = {"params": jax.tree.map(np.asarray, params),
+        res = {"params": params,
                "logits": got["logits"]}
         for m in XENT:
             res[m] = (float(got[m][0]), got[m][1])
-        out[arch] = res
-    return out
+        return res
+
+    return in_threads(run, ARCHS)
 
 
 def _port_params(jax_side, arch):
@@ -145,17 +172,24 @@ def test_remat_policies_keep_gradients(jax_side, arch, policy):
 
 
 def test_unsupported_configs_raise():
+    from test_torch_mesh import abstract_mesh
     params = tt.init_params(_port_cfg("llama"), device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.int64)
+    # Meshes run dp/fsdp/tp (tests/test_torch_mesh.py); expert
+    # parallelism and pipelines (A6) and ring attention (A5) raise.
     with pytest.raises(NotImplementedError, match="A6"):
-        tt.loss_fn(params, tokens, _port_cfg("llama"), mesh=object())
-    # MoE runs on one device now (tests/test_torch_moe.py); its sharded
-    # path (expert parallelism) still raises.
+        tt.loss_fn(params, tokens, _port_cfg("llama"),
+                   mesh=abstract_mesh(dict(ep=2)))
+    with pytest.raises(NotImplementedError, match="A5"):
+        tt.loss_fn(params, tokens, _port_cfg("llama"),
+                   mesh=abstract_mesh(dict(sp=2)))
+    # MoE runs on one device (tests/test_torch_moe.py); on a mesh of more
+    # than one device (expert capacity over the global batch) it raises.
     moe = _port_cfg("llama", moe_experts=4)
     moe_params = tt.init_params(moe, device="cpu")
     assert torch.isfinite(tt.forward(moe_params, tokens, moe)).all()
     with pytest.raises(NotImplementedError, match="A6"):
-        tt.forward(moe_params, tokens, moe, mesh=object())
+        tt.forward(moe_params, tokens, moe, mesh=abstract_mesh(dict(dp=2)))
     with pytest.raises(ValueError, match="remat_policy"):
         tt.loss_fn(params, tokens, _port_cfg("llama", remat=True,
                                              remat_policy="everything"))
