@@ -31,7 +31,8 @@ script exits non-zero without a result line:
                shapes (llama-1b: B 4, Hq 32, Hkv 8, S 2048, D 64, causal,
                bf16) and in f32, D 128, groups 1 and 8, non-causal and
                cross-length causal cases, fewer work tiles than SMs and
-               counts no multiple of 132, some with a nonzero dlse
+               counts no multiple of 132, the ring phase's causal and
+               non-causal 2048-token steps, some with a nonzero dlse
                (tolerances at F32_TOL and BF16_TOL; each bf16 case also
                shows that its limits reject a result with one tile pair
                left out); B2 and B3 repeated give the same bits; kernel /
@@ -78,16 +79,31 @@ script exits non-zero without a result line:
                6 timed steps: step ms, tokens/s, MFU, peak memory, B1-B3
                launches; then (train_mesh_equal) 2 layers in f32, the
                mesh-of-one step equals mesh=None bit for bit over 2
-               steps.
+               steps;
+ 16. ring    — ring attention's per-rank body (ops/ring_attention.py) for
+               every rank of a 4-rank ring on the card, at llama-1b's
+               attention (Hq 32, Hkv 8, D 64), bf16, S 8192 = 4 x 2048,
+               causal: forward and backward through B1-B3 (16 launches of
+               each), o, dq, dk, dv against one B1-B3 call over the whole
+               sequence by tile_rel_err (BF16_TOL), which must reject a
+               ring that drops one shard; f32 rings, causal and not,
+               against the plain reference (F32_TOL); the ring's forward
+               and forward+backward times against the single call's;
+ 17. pipeline — pipeline_loss_fn (parallel/pipeline.py) on the mesh of
+               one at llama-1b's full width (16 layers, bf16, batch 4 x
+               2048, xent_chunk 2048, 4 microbatches): loss and every
+               gradient equal to loss_fn with remat off in the same run,
+               bit for bit (else the run fails); B1-B3 launches; peak
+               memory.
 
-Then one JSON line `{"kernels": [...]}` (per kernel: launches on its main
-paths — serve, serve_lora and serve_8b (int8, bf16) for B4, train,
-train_moe and train_mesh for B1-B3, each counted from 0 just before its
-path and read just after — max error, B4 also at llama-8b's shape,
-times two ways (see `time_ms`), the host's time to issue one call, the
-card's bound, the kernel / library ratio), the card's name and power
-limit as nvidia-smi reports them, and last `{"ok": true, "device":
-{...}}`.
+Then one JSON line `{"kernels": [...]}` (per kernel: launches on its
+main paths — serve, serve_lora and serve_8b (int8, bf16) for B4, train,
+train_moe, train_mesh, ring and pipeline for B1-B3, each counted from 0
+just before its path and read just after — max error, B4 also at
+llama-8b's shape, times two ways (see `time_ms`), the host's time to
+issue one call, the card's bound, the kernel / library ratio), the
+card's name and power limit as nvidia-smi reports them, and last `{"ok":
+true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -147,24 +163,26 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10) -> dict:
+def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10,
+            spin: int = 2_000_000) -> dict:
     """Times of one call of `fn`, medians over n calls, with the L2 cache
     flushed (256 MB written) before each call, read two ways in turn:
 
     ms         CUDA events recorded around the call right after the
                flush: any host time of the call that the flush's
                ~0.08 ms on the card does not cover is in the interval;
-    device_ms  the same after a ~1 ms spin on the card, which keeps it
-               busy while the host enqueues the events and the call, so
-               the interval holds device time only;
+    device_ms  the same after a spin of `spin` cycles on the card (~1 ms
+               by default), which keeps it busy while the host enqueues
+               the events and the call, so the interval holds device time
+               only (as long as the spin outlasts the host's enqueueing);
     host_ms    the host's time to issue the call (perf_counter around it
                while the card spins, so nothing waits on the device)."""
     wall, dev, host = [], [], []
     for i in range(warmup + n):
-        for spin in (False, True):
+        for spun in (False, True):
             flush.zero_()
-            if spin:
-                torch.cuda._sleep(2_000_000)
+            if spun:
+                torch.cuda._sleep(spin)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -174,7 +192,7 @@ def time_ms(torch, fn, flush, n: int = 60, warmup: int = 10) -> dict:
             end.record()
             end.synchronize()
             if i >= warmup:
-                if spin:
+                if spun:
                     dev.append(start.elapsed_time(end))
                     host.append((t1 - t0) * 1e3)
                 else:
@@ -349,6 +367,11 @@ FLASH_CASES = [
     ("ragged-tiles", "bfloat16", 3, 12, 4, 640, 640, 64, True, True),
     # Mixtral's attention at the MoE training shapes.
     ("mixtral", "bfloat16", 4, 32, 8, 2048, 2048, 128, True, False),
+    # The ring phase's steps (llama-1b's attention, 2048-token shards):
+    # the diagonal step causal, the others non-causal, each with the
+    # nonzero dlse that the ring's merge hands it.
+    ("ring-diag", "bfloat16", 1, 32, 8, 2048, 2048, 64, True, True),
+    ("ring-step", "bfloat16", 1, 32, 8, 2048, 2048, 64, False, True),
 ]
 D128_SHAPE = (4, 16, 4, 2048, 128)          # B, Hq, Hkv, S, D
 MIXTRAL_SHAPE = (4, 32, 8, 2048, 128)
@@ -1221,7 +1244,7 @@ def phase_train_e2e(torch, fa):
     return out
 
 
-# -- training on a mesh at bench.py's llama-1b setting -------------------------
+# -- training on a mesh at bench.py's llama-1b setting ------------------------
 # bench.py:60-67 (batch 4 x 2048, remat "names", xent_chunk 2048,
 # attn_block_k 1024) and :89-95 (a one-device mesh, Adafactor with
 # total_steps 1000, donate_state); 2 warm-up and 6 timed steps as bench.py.
@@ -1331,6 +1354,242 @@ def phase_train_mesh_equal(torch, mesh):
         raise AssertionError(f"the mesh-of-one step differs from "
                              f"mesh=None: {out}")
     return out
+
+
+# -- ring attention through B1-B3, every rank on one card ---------------------
+# llama-1b's attention (Hq 32, Hkv 8, D 64), bf16, B 1, S 8192 as n = 4
+# shards of 2048, causal: each rank's `_ring_attention_sharded` run in one
+# process (`_virtual_ring`: at step t rank r is handed shard (r - t) mod
+# n), forward and backward from a random do, against one B1-B3 call over
+# the whole sequence; f32 at 256 tokens a shard against the plain
+# reference.  RING_SPIN (~40 ms at 1.98 GHz) outlasts the host's
+# enqueueing of the ring's forward and backward, so the spun reading is
+# device time.
+RING = dict(n=4, B=1, Hq=32, Hkv=8, S=8192, D=64)
+RING_F32 = dict(n=4, B=1, Hq=8, Hkv=2, S=1024, D=64)
+RING_SPIN = 80_000_000
+RING_OUT = ("o", "dq", "dk", "dv")
+
+
+def ring_grads(torch, fn, q, k, v, do):
+    """(o, dq, dk, dv) of fn(q, k, v) [B, H, S, D] from the cotangent do."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fn(q, k, v)
+    return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+
+def dropped_shard_ring(torch, rt, q, k, v, n, scale):
+    """What a ring would give that left out one visible partial: rank
+    n - 1 skips the shard of rank n - 2 (its step 1).  The future shards,
+    which the ring nulls, are left out too."""
+    qs, ks, vs = (t.chunk(n, 2) for t in (q, k, v))
+    outs = []
+    for r in range(n):
+        o, lse = rt._partial_attn(qs[r], ks[r], vs[r], scale, True)
+        o = o.float()
+        for t in range(1, n):
+            src = (r - t) % n
+            if src > r or (r, t) == (n - 1, 1):
+                continue
+            o_p, lse_p = rt._partial_attn(qs[r], ks[src], vs[src], scale,
+                                          False)
+            o, lse = rt._merge(o, lse, o_p, lse_p)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, 2)
+
+
+def ring_errors(torch, got, want, bf16):
+    """Per output of RING_OUT: bf16 by `tile_rel_err` (flat [B*H, S, D]),
+    f32 by max abs error; and whether each is within its limit."""
+    errs, ok = {}, {}
+    for key, g, w in zip(RING_OUT, got, want):
+        S, D = w.shape[-2:]
+        g, w = g.float().reshape(-1, S, D), w.float().reshape(-1, S, D)
+        errs[f"{key}_max_abs_err"] = (g - w).abs().max().item()
+        if bf16:
+            errs[f"{key}_tile_rel_err"] = tile_rel_err(torch, g, w)
+            ok[key] = errs[f"{key}_tile_rel_err"] <= BF16_TOL["tile_rel"]
+        else:
+            tol = F32_TOL["o" if key == "o" else "grad"]
+            ok[key] = bool(torch.allclose(g, w, atol=tol, rtol=tol))
+    return errs, ok
+
+
+def ring_work(n, B, Hq, S, D):
+    """(visible pairs, pairs the ring computes) for a causal ring: each
+    rank's diagonal block causally, its n - 1 other blocks whole, the
+    future ones nulled after."""
+    s = S // n
+    visible = B * Hq * S * (S + 1) // 2
+    computed = B * Hq * n * (s * (s + 1) // 2 + (n - 1) * s * s)
+    return visible, computed
+
+
+def phase_ring(torch, fa):
+    """The ring's per-rank body for every rank of RING on the card through
+    B1-B3 (n^2 launches of each), against one B1-B3 call over the whole
+    sequence by `tile_rel_err` at BF16_TOL; the limits must reject a ring
+    that drops one shard's partial; f32 rings (causal and not) against
+    the plain reference at F32_TOL; forward and forward+backward times of
+    the ring and of the single call."""
+    from ray_tpu_torch.ops import ring_attention as rt
+    n, B, Hq, Hkv, S, D = (RING[k] for k in ("n", "B", "Hq", "Hkv", "S",
+                                             "D"))
+    scale = 1.0 / D ** 0.5
+    q, k, v, do = (t.reshape(B, -1, S, D) for t in flash_inputs(
+        torch, torch.bfloat16, B, Hq, Hkv, S, S, D, False, seed=11)[:4])
+
+    def ring(a, b, c):
+        return rt._virtual_ring(a, b, c, n, causal=True, scale=scale)
+
+    def whole(a, b, c):
+        return fa.flash_attention_with_lse(a, b, c, causal=True,
+                                           scale=scale)[0]
+
+    # The main path: one forward and backward of the ring, counted alone.
+    for name in fa.launches:
+        fa.launches[name] = 0
+    got = ring_grads(torch, ring, q, k, v, do)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    if any(c != n * n for c in launches.values()):
+        raise AssertionError(f"ring launches {launches}: each kernel "
+                             f"{n * n} times (n ranks x n steps)")
+    want = ring_grads(torch, whole, q, k, v, do)
+    errs, ok = ring_errors(torch, got, want, True)
+    wrong = ring_grads(torch, lambda a, b, c: dropped_shard_ring(
+        torch, rt, a, b, c, n, scale), q, k, v, do)
+    dropped, dropped_ok = ring_errors(torch, wrong, want, True)
+    rejected = not any(dropped_ok.values())
+    del got, want, wrong
+    checks = {"bf16": {"shape": RING, "causal": True, **errs,
+                       "ok": all(ok.values()),
+                       "dropped_shard": {key: dropped[f"{key}_tile_rel_err"]
+                                         for key in RING_OUT},
+                       "dropped_shard_rejected": rejected}}
+    for causal in (True, False):
+        c = RING_F32
+        qf, kf, vf, dof = (t.reshape(c["B"], -1, c["S"], c["D"])
+                           for t in flash_inputs(
+                               torch, torch.float32, c["B"], c["Hq"],
+                               c["Hkv"], c["S"], c["S"], c["D"], False,
+                               seed=12 + causal)[:4])
+        sc = 1.0 / c["D"] ** 0.5
+        got = ring_grads(torch, lambda a, b, d, causal=causal:
+                         rt._virtual_ring(a, b, d, c["n"], causal=causal,
+                                          scale=sc), qf, kf, vf, dof)
+        want = ring_grads(torch, lambda a, b, d, causal=causal:
+                          fa.attention_reference_with_lse(
+                              a, b, d, causal=causal, scale=sc)[0],
+                          qf, kf, vf, dof)
+        f_errs, f_ok = ring_errors(torch, got, want, False)
+        checks[f"f32_{'causal' if causal else 'full'}"] = {
+            "shape": c, "causal": causal, **f_errs, "ok": all(f_ok.values())}
+    if not all(v["ok"] for v in checks.values()) or not rejected:
+        raise AssertionError(f"the ring disagrees with one attention call, "
+                             f"or a limit would pass a dropped shard: "
+                             f"{checks}")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        fwd = {name: time_ms(torch, lambda fn=fn: fn(q, k, v), flush, n=10,
+                             warmup=3, spin=RING_SPIN)
+               for name, fn in (("ring", ring), ("single", whole))}
+    both = {name: time_ms(torch, lambda fn=fn: ring_grads(
+                torch, fn, q, k, v, do), flush, n=10, warmup=3,
+                spin=RING_SPIN)
+            for name, fn in (("ring", ring), ("single", whole))}
+    visible, computed = ring_work(n, B, Hq, S, D)
+    nulled = n * (n - 1) // 2
+    out = {"phase": "ring", "shape": RING, "dtype": "bfloat16",
+           "causal": True, "checks": checks, "tolerance_bf16": BF16_TOL,
+           "tolerance_f32": F32_TOL, "launches": launches,
+           "partials": n * n, "partials_nulled": nulled,
+           "nulled_share": nulled / (n * n),
+           "pairs_visible": visible, "pairs_computed": computed,
+           "spin_cycles": RING_SPIN,
+           "fwd_ms": {k_: t["ms"] for k_, t in fwd.items()},
+           "fwd_device_ms": {k_: t["device_ms"] for k_, t in fwd.items()},
+           "fwd_host_ms": {k_: t["host_ms"] for k_, t in fwd.items()},
+           "fwd_bwd_ms": {k_: t["ms"] for k_, t in both.items()},
+           "fwd_bwd_device_ms": {k_: t["device_ms"]
+                                 for k_, t in both.items()},
+           "fwd_bwd_host_ms": {k_: t["host_ms"] for k_, t in both.items()},
+           "fwd_device_ratio": fwd["ring"]["device_ms"]
+           / fwd["single"]["device_ms"],
+           "fwd_bwd_device_ratio": both["ring"]["device_ms"]
+           / both["single"]["device_ms"]}
+    return out, launches
+
+
+# -- the pipeline entry point at one stage ------------------------------------
+# pipeline_loss_fn on a mesh of one at llama-1b's full width (16 layers,
+# bf16, batch 4 x 2048, xent_chunk 2048, 4 microbatches): at pp 1 it
+# applies every layer in order, so its loss and gradients are held
+# against loss_fn with remat off bit for bit.
+PIPE = dict(batch=4, seq=2048, micro=4)
+
+
+def pipeline_against_loss_fn(torch, fa, cfg, mesh, tokens, seed):
+    """pipeline_loss_fn's and loss_fn's (remat off) loss and gradients
+    from the same parameters: (pipeline launches, peak GB of the pipeline
+    run, wall s, loss pair, gradient pairs)."""
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+    from ray_tpu_torch.parallel.pipeline import pipeline_loss_fn
+    from ray_tpu_torch.train.train_step import _leaves
+    params = init_params(cfg, seed=seed, device="cuda")
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t = time.perf_counter()
+    loss = pipeline_loss_fn(params, tokens, cfg, mesh,
+                            num_microbatches=PIPE["micro"])
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plain = loss_fn(params, tokens, cfg)[0]
+    plain_grads = torch.autograd.grad(plain, leaves)
+    return (launches, peak, wall, (loss.detach(), plain.detach()),
+            list(zip(grads, plain_grads)))
+
+
+def phase_pipeline(torch, fa, mesh):
+    """pipeline_loss_fn (parallel/pipeline.py) on the mesh of one at
+    llama-1b's full width: loss and every gradient bit-equal to loss_fn
+    with remat off in the same run (at pp 1 both run the same operations
+    in the same order, so any difference is a fault); B1-B3 launched once
+    per layer; peak memory."""
+    from ray_tpu_torch.parallel.mesh import mesh_sizes
+    B, S = PIPE["batch"], PIPE["seq"]
+    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=False,
+                    xent_chunk=2048)
+    tokens = torch.as_tensor(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (B, S + 1)), device="cuda")
+    launches, peak, wall, (loss, plain), pairs = pipeline_against_loss_fn(
+        torch, fa, cfg, mesh, tokens, seed=0)
+    if any(c != cfg.n_layers for c in launches.values()):
+        raise AssertionError(f"pipeline launches {launches}: each kernel "
+                             f"{cfg.n_layers} times")
+    equal = [bool(torch.equal(a, b)) for a, b in pairs]
+    out = {"phase": "pipeline", "model": "llama-1b", "dtype": "bfloat16",
+           "mesh": mesh_sizes(mesh), "batch": B, "seq": S,
+           "microbatches": PIPE["micro"], "remat": False,
+           "xent_chunk": cfg.xent_chunk, "loss": loss.item(),
+           "loss_fn_loss": plain.item(),
+           "loss_bit_equal": bool(torch.equal(loss, plain)),
+           "grads_bit_equal": sum(equal), "grads": len(equal),
+           "launches": launches, "peak_mem_gb": peak, "wall_s": wall}
+    del pairs
+    torch.cuda.empty_cache()
+    if not (out["loss_bit_equal"] and all(equal)):
+        raise AssertionError(f"pipeline_loss_fn is not bit-equal to "
+                             f"loss_fn at pp 1: {out}")
+    return out, launches
 
 
 # -- MoE training (mixtral-8x7b, Adafactor) -----------------------------------
@@ -1910,6 +2169,14 @@ def main() -> int:
     emit(train_mesh)
     torch.cuda.empty_cache()
     emit(phase_train_mesh_equal(torch, mesh))
+    torch.cuda.empty_cache()
+    # 16. ring attention through B1-B3, every rank on one card
+    ring, ring_launches = phase_ring(torch, fa)
+    emit(ring)
+    torch.cuda.empty_cache()
+    # 17. the pipeline entry point at one stage, against loss_fn
+    pipe, pipe_launches = phase_pipeline(torch, fa, mesh)
+    emit(pipe)
     torch.distributed.destroy_process_group()
 
     kernels = [{
@@ -1936,10 +2203,13 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": where,
             "launches": train_launches[kname] + moe_launches[kname]
-            + mesh_launches[kname],
+            + mesh_launches[kname] + ring_launches[kname]
+            + pipe_launches[kname],
             "launches_by_path": {"train": train_launches[kname],
                                  "train_moe": moe_launches[kname],
-                                 "train_mesh": mesh_launches[kname]},
+                                 "train_mesh": mesh_launches[kname],
+                                 "ring": ring_launches[kname],
+                                 "pipeline": pipe_launches[kname]},
             "max_abs_err": t["max_abs_err"],
             **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})

@@ -25,9 +25,29 @@ tp-split heads and MLP columns (DTensor inserts the Megatron all-reduces
 at the constraints JAX's model sets), attention runs on each rank's local
 batch rows and heads through `local_map` (exact when tp divides
 n_kv_heads), and the embedding gather and cross-entropy run on each
-rank's rows against the whole table, their sums reduced over the batch
-axes.  sp, ep and pp axes, and MoE on a mesh, raise (ROADMAP Queue A, A5
-and A6).
+rank's tokens against the whole table, their sums reduced over the mesh
+axes that split the tokens.
+
+An sp axis splits the sequence: the token ids and their global positions
+are constrained to ("batch", "seq") before the embedding, so every
+activation is split on the sequence as in JAX, RoPE rotates each rank's
+shard by its global positions, attention runs `ops.ring_attention`
+(under remat inside one non-reentrant checkpoint, so the ring's partials
+are recomputed and only q, k, v and its output are kept), and the
+cross-entropy takes each rank's sequence chunk of the hidden states and
+targets as they are (no gather), its sums reduced over batch and sp.
+
+MoE on a mesh (`_moe_block_sharded`) keeps JAX's global routing: the
+capacity comes from the global token count, and every pair's slot from
+the experts chosen for every token, gathered over the ranks that hold
+tokens in global order t = b * S + s, so the pairs kept and dropped are
+those of one device.  Each rank dispatches its own tokens into the
+[E, cap, D] expert inputs; these are summed over the token-holding ranks
+onto the ranks that own each expert ("expert" -> ep: a local slice, then
+an all-reduce of E / ep experts' rows), the expert products run on local
+experts only, and the outputs are gathered over ep for each rank's
+combine.  A pp axis is replicated (no rule maps to it); the pipeline is
+`parallel/pipeline.py`.
 
 MoE.  `_moe_block` computes JAX's GShard-style block (top-k routing in
 f32, renormalised gates, a fixed capacity per expert, pairs past it
@@ -67,6 +87,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention_with_lse
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel.mesh import mesh_sizes
 from ray_tpu_torch.parallel.sharding import (constrain, is_dtensor,
                                              mesh_trivial, spec_for, use_mesh)
@@ -337,27 +358,11 @@ def _matmul_f32(a, b):
 # forward (training)
 # ---------------------------------------------------------------------------
 def _check_supported(cfg: TransformerConfig, mesh) -> None:
-    """Raise for a mesh the port cannot run: sp (ring attention), ep or
-    pp above 1, MoE on more than one device, or a head split that does
-    not divide n_kv_heads (local attention would pair a rank's query
-    heads with another rank's kv heads)."""
+    """Raise for a mesh whose head split does not divide n_kv_heads:
+    local attention would pair a rank's query heads with another rank's
+    kv heads."""
     if mesh_trivial(mesh):
         return
-    sizes = mesh_sizes(mesh)
-    if sizes.get("sp", 1) > 1:
-        raise NotImplementedError(
-            "an sp mesh axis runs ring attention, which ray_tpu_torch has "
-            "not ported yet (ROADMAP Queue A, A5)")
-    for axis in ("ep", "pp"):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"an {axis} mesh axis (expert parallelism, pipeline stages)"
-                " is not ported yet (ROADMAP Queue A, A6)")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE on a mesh of more than one device: the expert capacity is "
-            "computed over the global batch, which a per-rank route would "
-            "not reproduce (ROADMAP Queue A, A6)")
     split = math.prod(mesh.size(i) for i, p in enumerate(
         spec_for(("batch", "kv_heads", "seq", None), mesh=mesh))
         if getattr(p, "dim", None) == 1)
@@ -372,6 +377,12 @@ def _batch_dims(t) -> frozenset:
     """Mesh dimensions on which DTensor `t` is split along its dim 0."""
     return frozenset(i for i, p in enumerate(t.placements)
                      if getattr(p, "dim", None) == 0)
+
+
+def _split_dims(t) -> frozenset:
+    """Mesh dimensions on which DTensor `t` is split (any tensor dim): for
+    tokens [B, S], the ranks that hold different tokens."""
+    return frozenset(i for i, p in enumerate(t.placements) if p.is_shard())
 
 
 def _gathered(w, batch_dims):
@@ -400,24 +411,29 @@ def _compute_layout(params, batch_dims):
             for k, v in params.items()}
 
 
-def _moe_route(cfg: TransformerConfig, ht, w_router):
-    """Routing of `_moe_block`.  ht: [T, D] -> (probs [T, E] f32, gates
-    [T, K] f32 renormalised to sum 1, experts [T, K], slots [T, K], cap).
-
-    Slots are assigned choice by choice, j = 0 first, tokens in order:
-    the pairs of choice j fill each expert after the pairs kept for
-    earlier choices.  A pair's slot is `expert * cap + position`, or
-    `E * cap` (the spare row) when position >= cap: the pair is dropped
-    and its token's other gates are not renormalised."""
-    E, K = cfg.moe_experts, cfg.moe_top_k
-    T = ht.shape[0]
+def _moe_gates(cfg: TransformerConfig, ht, w_router):
+    """ht: [T, D] -> (probs [T, E] f32, gates [T, K] f32 renormalised to
+    sum 1, experts [T, K])."""
     probs = torch.softmax(ht.float() @ w_router.float(), dim=-1)
-    gates, experts = torch.topk(probs, K, dim=-1)
-    gates = gates / gates.sum(-1, keepdim=True)
-    cap = int(math.ceil(T * K * cfg.moe_capacity_factor / E))
-    filled = torch.zeros(E, dtype=torch.int64, device=ht.device)
+    gates, experts = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    return probs, gates / gates.sum(-1, keepdim=True), experts
+
+
+def _moe_capacity(cfg: TransformerConfig, n_tokens: int) -> int:
+    return int(math.ceil(n_tokens * cfg.moe_top_k * cfg.moe_capacity_factor
+                         / cfg.moe_experts))
+
+
+def _moe_slots(experts, E: int, cap: int):
+    """experts [T, K] -> slots [T, K].  Slots are assigned choice by
+    choice, j = 0 first, tokens in order: the pairs of choice j fill each
+    expert after the pairs kept for earlier choices.  A pair's slot is
+    `expert * cap + position`, or `E * cap` (the spare row) when position
+    >= cap: the pair is dropped and its token's other gates are not
+    renormalised."""
+    filled = torch.zeros(E, dtype=torch.int64, device=experts.device)
     slots = []
-    for j in range(K):
+    for j in range(experts.shape[1]):
         # [E, T]: the running count scans each expert's row (a scan over
         # the first axis of [T, E] parallelises over E columns only).
         onehot = F.one_hot(experts[:, j], E).t().contiguous()
@@ -426,7 +442,16 @@ def _moe_route(cfg: TransformerConfig, ht, w_router):
         keep = pos < cap
         slots.append(torch.where(keep, experts[:, j] * cap + pos, E * cap))
         filled = filled + (onehot * keep).sum(1)
-    return probs, gates, experts, torch.stack(slots, 1), cap
+    return torch.stack(slots, 1)
+
+
+def _moe_route(cfg: TransformerConfig, ht, w_router):
+    """Routing of `_moe_block` on one device.  ht: [T, D] -> (probs,
+    gates, experts, slots [T, K], cap); see `_moe_gates`, `_moe_slots`."""
+    probs, gates, experts = _moe_gates(cfg, ht, w_router)
+    cap = _moe_capacity(cfg, ht.shape[0])
+    return probs, gates, experts, _moe_slots(experts, cfg.moe_experts,
+                                             cap), cap
 
 
 def _moe_dispatch(ht, slots, n):
@@ -451,9 +476,12 @@ def _moe_combine(out_e, gates, slots, dtype):
 
 
 def _moe_block(cfg: TransformerConfig, h, p):
-    """MoE FFN on one device.  h: [B, S, D] (normed) -> (out [B, S, D],
-    aux load-balancing loss, f32 scalar).  The experts compute
-    silu(x W_gate) * (x W_up) then W_down, for every arch."""
+    """MoE FFN.  h: [B, S, D] (normed) -> (out [B, S, D], aux
+    load-balancing loss, f32 scalar).  The experts compute
+    silu(x W_gate) * (x W_up) then W_down, for every arch.  A DTensor h
+    (a mesh of more than one device) takes `_moe_block_sharded`."""
+    if is_dtensor(h):
+        return _moe_block_sharded(cfg, h, p)
     B, S, D = h.shape
     E = cfg.moe_experts
     ht = h.reshape(B * S, D)
@@ -469,6 +497,72 @@ def _moe_block(cfg: TransformerConfig, h, p):
     frac_tokens = F.one_hot(experts[:, 0], E).float().mean(0)
     aux = E * (frac_tokens * probs.mean(0)).sum()
     return out.reshape(B, S, D), aux
+
+
+def _moe_routing_sharded(cfg: TransformerConfig, h, w_router):
+    """Routing of this rank's tokens of a token-split DTensor h [B, S, D]
+    as one device routes the whole batch: (ht [T_local, D], probs, gates,
+    experts, slots [T_local, K], cap).  The [T_local, K] expert choices
+    are gathered over the token-holding ranks in global order b * S + s
+    (a few ints a token), the slots assigned on the whole list, and this
+    rank's rows kept."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl = h.device_mesh, h.placements
+    B, S, D = h.shape
+    hl = h.to_local()
+    b, s = hl.shape[:2]
+    ht = hl.reshape(b * s, D)
+    probs, gates, experts = _moe_gates(
+        cfg, ht, _gathered(w_router, _split_dims(h)))
+    cap = _moe_capacity(cfg, B * S)
+    K = experts.shape[1]
+    every = DTensor.from_local(experts.reshape(b, s, K), mesh, pl,
+                               run_check=False, shape=(B, S, K),
+                               stride=(S * K, K, 1)).full_tensor()
+    slots = _moe_slots(every.reshape(B * S, K), cfg.moe_experts, cap)
+    mine = DTensor.from_local(slots.reshape(B, S, K), mesh,
+                              [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh, pl)
+    return ht, probs, gates, experts, mine.to_local().reshape(b * s, K), cap
+
+
+def _moe_block_sharded(cfg: TransformerConfig, h, p):
+    """`_moe_block` of a token-split DTensor h on a mesh (see the module
+    docstring): global routing, the expert inputs summed over the
+    token-holding ranks onto each expert's owners, local expert products,
+    outputs gathered over ep for each rank's combine; the aux loss from
+    the global means."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = h.device_mesh
+    E, (B, S, D) = cfg.moe_experts, h.shape
+    tok = _split_dims(h)
+    ht, probs, gates, experts, slots, cap = _moe_routing_sharded(
+        cfg, h, p["w_router"])
+    summed = [Partial() if i in tok else Replicate()
+              for i in range(mesh.ndim)]
+    xin = DTensor.from_local(_moe_dispatch(ht, slots, E * cap).view(
+        E, cap, D), mesh, summed, run_check=False)
+    owners = spec_for(("expert", None, None), mesh=mesh)
+    # This rank's experts first (a slice, no traffic), then their sum over
+    # the token-holding ranks.
+    xin = xin.redistribute(mesh, [
+        o if o.is_shard() and i not in tok else pl
+        for i, (o, pl) in enumerate(zip(owners, summed))])
+    xin = xin.redistribute(mesh, owners)
+    gate = torch.bmm(xin, p["w_gate"].to(cfg.dtype))
+    up = torch.bmm(xin, p["w_up"].to(cfg.dtype))
+    act = constrain(F.silu(gate.float()).to(cfg.dtype) * up,
+                    ("expert", None, "mlp"), mesh=mesh)
+    out_e = _gathered(torch.bmm(act, p["w_down"].to(cfg.dtype)), tok)
+    out = _moe_combine(out_e.reshape(E * cap, D), gates, slots, cfg.dtype)
+    out = DTensor.from_local(out.reshape(h.to_local().shape), mesh,
+                             h.placements, run_check=False)
+    # The global means of the top-1 share and the router probabilities.
+    local = torch.stack([F.one_hot(experts[:, 0], E).float().sum(0),
+                         probs.sum(0)])
+    means = DTensor.from_local(local, mesh, summed,
+                               run_check=False).full_tensor() / (B * S)
+    return out, E * (means[0] * means[1]).sum()
 
 
 def _attn_in(cfg: TransformerConfig, x, p, positions):
@@ -494,13 +588,22 @@ def _local_attention(cfg: TransformerConfig, q, k, v):
     return o
 
 
-def _attention(cfg: TransformerConfig, q, k, v):
+def _attention(cfg: TransformerConfig, q, k, v, remat: bool = False):
     """Causal attention; DTensor q, k, v run on each rank's batch rows and
-    heads (kernel or plain, by `cfg.attn_impl`) through `local_map`."""
+    heads (kernel or plain, by `cfg.attn_impl`) through `local_map`, or,
+    split on the sequence over sp, as ring attention (inside a
+    non-reentrant checkpoint when `remat`: the ring's partials are
+    recomputed in the backward, JAX's `save_residuals=False`)."""
     if not is_dtensor(q):
         return _local_attention(cfg, q, k, v)
-    from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
+    if mesh_sizes(mesh).get("sp", 1) > 1:
+        ring = functools.partial(ring_attention, mesh=mesh, axis_name="sp",
+                                 causal=True, impl=cfg.attn_impl)
+        if remat:
+            return checkpoint(ring, q, k, v, use_reentrant=False)
+        return ring(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
     pq = spec_for(("batch", "heads", "seq", None), mesh=mesh)
     pk = spec_for(("batch", "kv_heads", "seq", None), mesh=mesh)
     return local_map(functools.partial(_local_attention, cfg),
@@ -571,7 +674,7 @@ def _remat_layer(cfg: TransformerConfig, x, p, positions):
             create_selective_checkpoint_contexts, _save_matmuls)
     q, k, v = checkpoint(functools.partial(_attn_in, cfg), x, p, positions,
                          **kw)
-    o = _attention(cfg, q, k, v)
+    o = _attention(cfg, q, k, v, remat=True)
     return checkpoint(functools.partial(_attn_out_mlp, cfg), x, o, p, **kw)
 
 
@@ -594,17 +697,21 @@ def _sharded_tokens(tokens, mesh):
 
 
 def _sharded_embed(params, tokens, cfg: TransformerConfig):
-    """Embeddings and positions of a batch-split DTensor of tokens: each
-    rank gathers its rows from the whole table."""
+    """Embeddings and global positions of a batch-split DTensor of tokens,
+    both constrained to ("batch", "seq") (split on the sequence over sp:
+    rank r's positions start at its shard's offset): each rank gathers
+    its tokens' rows from the whole table."""
     from torch.distributed.tensor import DTensor
-    mesh, pl = tokens.device_mesh, tokens.placements
-    rows = tokens.to_local()
-    table = _gathered(params["tok_embed"], _batch_dims(tokens))
-    x = DTensor.from_local(F.embedding(rows.long(), table).to(cfg.dtype),
-                           mesh, pl, run_check=False)
+    mesh = tokens.device_mesh
     positions = DTensor.from_local(torch.arange(
-        rows.shape[1], dtype=torch.int32, device=rows.device).expand(
-            rows.shape), mesh, pl, run_check=False)
+        tokens.shape[1], dtype=torch.int32,
+        device=tokens.device).expand(tokens.to_local().shape), mesh,
+        tokens.placements, run_check=False)
+    tokens, positions = (constrain(t, ("batch", "seq"), mesh=mesh)
+                         for t in (tokens, positions))
+    table = _gathered(params["tok_embed"], _split_dims(tokens))
+    x = DTensor.from_local(F.embedding(tokens.to_local().long(), table).to(
+        cfg.dtype), mesh, tokens.placements, run_check=False)
     return x, positions
 
 
@@ -692,14 +799,17 @@ def _xent_sum(x, w_out, targets, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def _sharded_cross_entropy(x, w_out, targets, cfg: TransformerConfig):
-    """`fused_cross_entropy` of batch-split DTensors: each rank's rows
-    against the whole output matrix, the sums added over the batch axes
-    (a Partial DTensor made whole) and divided by the global count."""
+    """`fused_cross_entropy` of token-split DTensors: the targets are
+    constrained to ("batch", "seq") like the hidden states, each rank's
+    tokens go against the whole output matrix, and the sums are added over
+    the mesh axes that split the tokens (a Partial DTensor made whole)
+    and divided by the global count.  Sequence shards stay where they
+    are: no rank gathers another's hidden states."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    mesh, dims = targets.device_mesh, _batch_dims(targets)
-    rows = [p if i in dims else Replicate()
-            for i, p in enumerate(targets.placements)]
-    local = _xent_sum(x.redistribute(mesh, rows).to_local(),
+    mesh = targets.device_mesh
+    targets = constrain(targets, ("batch", "seq"), mesh=mesh)
+    dims = _split_dims(targets)
+    local = _xent_sum(x.redistribute(mesh, targets.placements).to_local(),
                       _gathered(w_out, dims), targets.to_local(), cfg)
     total = DTensor.from_local(local, mesh, [
         Partial() if i in dims else Replicate() for i in range(mesh.ndim)],

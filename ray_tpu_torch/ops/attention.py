@@ -428,9 +428,20 @@ def _flash_apply(q, k, v, causal: bool, scale: Optional[float]):
 def flash_attention_with_lse(q, k, v, causal: bool = True,
                              scale: Optional[float] = None,
                              block_q: int = DEFAULT_BLOCK_Q,
-                             block_k: int = DEFAULT_BLOCK_K):
+                             block_k: int = DEFAULT_BLOCK_K,
+                             save_residuals: bool = True):
     """The CUDA flash kernels, (o [B,Hq,Sq,D], lse [B,Hq,Sq]),
-    differentiable in both.  CUDA tensors only."""
+    differentiable in both.  CUDA tensors only.
+
+    `save_residuals` is accepted for parity with the JAX signature and
+    changes nothing: JAX uses it to tag (o, lse) saveable under its remat
+    policies, and the port has no tags.  The Function keeps (q, k, v, o,
+    lse) for its backward either way; what remat recomputes is decided by
+    the checkpoint region the caller runs the call in (`ring_attention`'s
+    docstring).  A value that is not a bool raises."""
+    if not isinstance(save_residuals, bool):
+        raise TypeError("save_residuals is True or False, got "
+                        f"{save_residuals!r}")
     _validate_flash(q, k, causal, block_q, block_k)
     _pick_block(q.shape[2], block_q)
     _pick_block(k.shape[2], block_k)

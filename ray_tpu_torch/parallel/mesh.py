@@ -9,9 +9,9 @@ dimension of size 1 for a one-device mesh:
     dp    — pure data parallel (replicated params)
     fsdp  — data parallel with sharded params/opt-state (ZeRO-3 analog)
     tp    — tensor parallel (Megatron-style, intra-layer)
-    sp    — sequence/context parallel (ring attention; ROADMAP A5)
-    ep    — expert parallel (MoE; ROADMAP A6)
-    pp    — pipeline stages (sub-meshes; ROADMAP A6)
+    sp    — sequence/context parallel (ring attention, ops/ring_attention.py)
+    ep    — expert parallel (MoE experts split, models/transformer.py)
+    pp    — pipeline stages (GPipe, parallel/pipeline.py)
 
 One rank drives one device.  `make_mesh` starts a world-size-1 process
 group when none exists (NCCL on CUDA, gloo on the CPU), so a one-device

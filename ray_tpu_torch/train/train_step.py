@@ -9,9 +9,11 @@ callers and telemetry hooks (`_cache_size`, `flops_per_token`,
 `shard_batch`) carry over.
 
 Meshes (`parallel/mesh.py`).  `mesh=None` and a mesh of one device run
-the same one-device step, bit for bit.  On a larger mesh (dp, fsdp, tp)
-the parameters are DTensors placed by `transformer.logical_axes` and the
-rules (`parallel/sharding.py`), and the optimizer state as JAX's
+the same one-device step, bit for bit.  On a larger mesh (dp, fsdp, tp,
+sp, ep; a pp axis is replicated, as in JAX: the pipeline is
+`parallel/pipeline.py`) the parameters are DTensors placed by
+`transformer.logical_axes` and the rules (`parallel/sharding.py`),
+experts split over ep, and the optimizer state as JAX's
 `_state_shardings` places it: trees that mirror the parameters (AdamW's
 moments) take their placements, everything else (Adafactor's factored
 statistics) is replicated, and the count is a Python int on every rank.

@@ -59,8 +59,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_every_port_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert {"ray_tpu_torch.serve.multiplex", "ray_tpu_torch.models.quantize",
-            "ray_tpu_torch.parallel.mesh",
-            "ray_tpu_torch.parallel.sharding"} <= set(mods)
+            "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+            "ray_tpu_torch.parallel.pipeline",
+            "ray_tpu_torch.ops.ring_attention"} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
@@ -108,8 +109,9 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 
 
 def test_moe_and_adafactor_run_while_mesh_still_raises():
-    """MoE and Adafactor are ported (one device); MoE on a mesh of more
-    than one device is not (expert parallelism, ROADMAP A6)."""
+    """MoE and Adafactor are ported; MoE takes a mesh (experts split over
+    ep, tests/test_torch_moe_pp.py), and what still raises is a head
+    split that does not divide n_kv_heads."""
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.train.train_step import (Adafactor, CompiledTrainStep,
                                                 make_optimizer)
@@ -125,10 +127,9 @@ def test_moe_and_adafactor_run_while_mesh_still_raises():
     assert {"moe_aux", "total_loss"} <= set(metrics)
     assert torch.isfinite(metrics["total_loss"])
     from test_torch_mesh import abstract_mesh
-    dp2 = abstract_mesh(dict(dp=2))            # MoE on a mesh: A6
-    with pytest.raises(NotImplementedError, match="A6"):
-        CompiledTrainStep(cfg, mesh=dp2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        transformer.loss_fn(state.params,
-                            torch.ones((1, 5), dtype=torch.int64), cfg,
-                            mesh=dp2)
+    ep2 = CompiledTrainStep(cfg, mesh=abstract_mesh(dict(dp=2, ep=2)),
+                            device="cpu")
+    assert repr(ep2.param_placements["layers"]["w_gate"]) == \
+        "(Replicate(), Shard(dim=1))"             # [L, E, d, f]: E on ep
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
+        CompiledTrainStep(cfg, mesh=abstract_mesh(dict(tp=4)), device="cpu")

@@ -222,11 +222,18 @@ def test_step_api_and_unported_options():
     with pytest.raises(ValueError, match="optimizer kind"):
         ts.make_optimizer(kind="sgd")
     from test_torch_mesh import abstract_mesh
-    with pytest.raises(NotImplementedError, match="A6"):       # pipeline
-        ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(pp=2, dp=2)),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):       # ring attn
-        ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(sp=2)),
+    # A pp axis is replicated, as in JAX (no rule maps to it); an sp axis
+    # splits no parameter (tests/test_torch_moe_pp.py runs both).
+    pp = ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(pp=2, dp=2)),
+                              device="cpu")
+    assert repr(pp.param_placements["layers"]["wq"]) == \
+        "(Replicate(), Replicate())"
+    assert repr(pp.data_placements) == "(Replicate(), Shard(dim=0))"
+    sp = ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(sp=2)),
+                              device="cpu")
+    assert repr(sp.data_placements) == "(Replicate(),)"
+    with pytest.raises(ValueError, match="does not divide"):
+        ts.CompiledTrainStep(cfg, mesh=abstract_mesh(dict(tp=4)),
                              device="cpu")
 
 

@@ -175,21 +175,18 @@ def test_unsupported_configs_raise():
     from test_torch_mesh import abstract_mesh
     params = tt.init_params(_port_cfg("llama"), device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.int64)
-    # Meshes run dp/fsdp/tp (tests/test_torch_mesh.py); expert
-    # parallelism and pipelines (A6) and ring attention (A5) raise.
-    with pytest.raises(NotImplementedError, match="A6"):
-        tt.loss_fn(params, tokens, _port_cfg("llama"),
-                   mesh=abstract_mesh(dict(ep=2)))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tt.loss_fn(params, tokens, _port_cfg("llama"),
-                   mesh=abstract_mesh(dict(sp=2)))
-    # MoE runs on one device (tests/test_torch_moe.py); on a mesh of more
-    # than one device (expert capacity over the global batch) it raises.
+    # Meshes run dp/fsdp/tp (tests/test_torch_mesh.py) and sp, ep, pp and
+    # MoE (tests/test_torch_moe_pp.py); a head split that does not divide
+    # n_kv_heads (2 here) raises, from the loss too.
+    for axes in (dict(ep=2), dict(sp=2), dict(pp=2), dict(dp=2, tp=2)):
+        tt._check_supported(_port_cfg("llama"), abstract_mesh(axes))
     moe = _port_cfg("llama", moe_experts=4)
+    tt._check_supported(moe, abstract_mesh(dict(dp=2, ep=2)))
     moe_params = tt.init_params(moe, device="cpu")
     assert torch.isfinite(tt.forward(moe_params, tokens, moe)).all()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tt.forward(moe_params, tokens, moe, mesh=abstract_mesh(dict(dp=2)))
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
+        tt.loss_fn(params, tokens, _port_cfg("llama"),
+                   mesh=abstract_mesh(dict(tp=4)))
     with pytest.raises(ValueError, match="remat_policy"):
         tt.loss_fn(params, tokens, _port_cfg("llama", remat=True,
                                              remat_policy="everything"))
