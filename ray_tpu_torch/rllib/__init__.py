@@ -1,0 +1,41 @@
+"""RL library of the port: the learners, in PyTorch.
+
+Port of `ray_tpu/rllib/`.  Every learner of the JAX package is here as a
+plain function of parameter dicts, an optax-shaped Adam state, a batch
+and a torch.Generator (or the draws themselves): PPO with GAE, V-trace
+for IMPALA (MLP and conv policies) and APPO, double DQN with replay
+buffers and n-step folding, SAC, CQL, BC and MARWIL, and PPO per policy
+for multi-agent envs.  The offline algorithms `CQL` and `MARWIL` train
+end to end from in-memory data.  What samples through rollout-worker
+actors (the PPO, DQN, SAC, IMPALA, APPO, MultiAgentPPO and BC algorithms)
+waits for the actor runtime (ROADMAP A8b).
+"""
+
+from ray_tpu_torch.rllib.appo import APPOConfig, make_appo_update
+from ray_tpu_torch.rllib.connectors import (ClipActions, ClipObs,
+                                            ConnectedEnv, Connector,
+                                            ConnectorPipeline, FlattenObs,
+                                            FrameStack, NormalizeObs,
+                                            UnsquashActions)
+from ray_tpu_torch.rllib.cql import CQL, CQLConfig, make_cql_update_fn
+from ray_tpu_torch.rllib.env import (CartPoleEnv, PendulumEnv,
+                                     PixelCartPoleEnv, VectorEnv)
+from ray_tpu_torch.rllib.impala import IMPALAConfig, make_vtrace_update
+from ray_tpu_torch.rllib.multi_agent import (MultiAgentCartPole,
+                                             MultiAgentEnv,
+                                             MultiAgentLearner,
+                                             MultiAgentPPOConfig)
+from ray_tpu_torch.rllib.offline import (MARWIL, MARWILConfig,
+                                         collect_expert_episodes)
+from ray_tpu_torch.rllib.optim import Adam, AdamState
+from ray_tpu_torch.rllib.ppo import PPOConfig
+
+__all__ = ["PPOConfig", "IMPALAConfig", "APPOConfig", "CQL", "CQLConfig",
+           "MARWIL", "MARWILConfig", "collect_expert_episodes",
+           "make_appo_update", "make_cql_update_fn", "make_vtrace_update",
+           "Adam", "AdamState", "CartPoleEnv", "PendulumEnv",
+           "PixelCartPoleEnv", "VectorEnv", "Connector",
+           "ConnectorPipeline", "ClipObs", "NormalizeObs", "FrameStack",
+           "FlattenObs", "ClipActions", "UnsquashActions", "ConnectedEnv",
+           "MultiAgentEnv", "MultiAgentCartPole", "MultiAgentLearner",
+           "MultiAgentPPOConfig"]

@@ -62,6 +62,10 @@ def test_every_port_module_imports_with_jax_blocked():
             "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
             "ray_tpu_torch.parallel.pipeline",
             "ray_tpu_torch.ops.ring_attention"} <= set(mods)
+    assert {f"ray_tpu_torch.rllib.{m}" for m in (
+        "appo", "checkpoint", "connectors", "convert", "cql", "dqn", "env",
+        "impala", "multi_agent", "offline", "optim", "ppo", "sac")} \
+        <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
@@ -133,3 +137,92 @@ def test_moe_and_adafactor_run_while_mesh_still_raises():
         "(Replicate(), Shard(dim=1))"             # [L, E, d, f]: E on ep
     with pytest.raises(ValueError, match="n_kv_heads=2"):
         CompiledTrainStep(cfg, mesh=abstract_mesh(dict(tp=4)), device="cpu")
+
+
+def _rllib_entry_points(device):
+    """Every make_* of the port's rllib and its offline algorithms,
+    called with `device` (None: the default, CUDA)."""
+    from ray_tpu_torch.rllib import (appo, convert, cql, dqn, impala,
+                                     multi_agent, offline, optim, ppo, sac)
+    kw = {} if device is None else {"device": device}
+    adam = optim.Adam(1e-3)
+    rs = np.random.RandomState(0)
+    cont = {"obs": rs.standard_normal((8, 3)).astype(np.float32),
+            "actions": rs.uniform(-2, 2, (8, 1)).astype(np.float32),
+            "rewards": np.ones(8, np.float32),
+            "next_obs": rs.standard_normal((8, 3)).astype(np.float32),
+            "dones": np.zeros(8, np.float32)}
+    disc = {"obs": rs.standard_normal((8, 4)).astype(np.float32),
+            "action": rs.randint(0, 2, 8), "reward": np.ones(8, np.float32),
+            "done": np.arange(8) % 4 == 3}
+    ma = multi_agent.MultiAgentPPOConfig().multi_agent(
+        policies={"p": {"obs_size": 4, "num_actions": 2}},
+        policy_mapping={"agent_0": "p"})
+    return [
+        lambda: ppo.make_update_fn(adam, 0.2, 0.5, 0.01, 0.99, 0.95, 2, 2,
+                                   **kw),
+        lambda: impala.make_vtrace_update(ppo.policy_forward, adam, 0.99,
+                                          1.0, 1.0, 0.5, 0.01, **kw),
+        lambda: appo.make_appo_update(ppo.policy_forward, adam, 0.99, 1.0,
+                                      1.0, 0.3, 0.5, 0.01, 4, **kw),
+        lambda: dqn.make_update_fn(adam, 0.99, 2, 4, **kw),
+        lambda: sac.make_update_fn(adam, adam, adam, 0.99, 0.005, -1.0, 2,
+                                   4, 2.0, **kw),
+        lambda: cql.make_cql_update_fn(adam, adam, adam, 0.99, 0.005, -1.0,
+                                       2, 4, 2.0, 5.0, 4, **kw),
+        lambda: offline.make_bc_update_fn(adam, 4, 2, **kw),
+        lambda: offline.make_marwil_update_fn(adam, 4, 2, 1.0, 1.0, **kw),
+        lambda: cql.CQLConfig().offline_data(data=cont).build(**kw),
+        lambda: offline.MARWILConfig().offline_data(data=disc).build(**kw),
+        lambda: multi_agent.MultiAgentLearner(ma, **kw),
+        lambda: optim.make_generator(0, **kw),
+        lambda: convert.params_from_jax({"w": np.zeros((2, 2), np.float32)},
+                                        **kw),
+    ]
+
+
+def test_rllib_entry_points_without_device_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in _rllib_entry_points(None):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for call in _rllib_entry_points("cpu"):
+        call()
+
+
+@pytest.mark.cuda
+def test_rllib_learners_on_cuda_match_cpu():
+    """A CQL update (the SAC step with the conservative term) on the
+    card against the same update on the CPU, with the same draws; TF32
+    off.  chip_smoke.py's rllib phase does this for every learner at the
+    JAX package's default widths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.rllib import cql, optim, sac
+    rs = np.random.RandomState(0)
+    data = {"obs": rs.standard_normal((64, 3)).astype(np.float32),
+            "actions": rs.uniform(-2, 2, (64, 1)).astype(np.float32),
+            "rewards": rs.standard_normal(64).astype(np.float32),
+            "next_obs": rs.standard_normal((64, 3)).astype(np.float32),
+            "dones": np.zeros(64, np.float32)}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        draws = None
+        for dev in ("cpu", "cuda"):
+            opts = [optim.Adam(3e-4) for _ in range(3)]
+            update = cql.make_cql_update_fn(*opts, 0.99, 0.005, -1.0, 4,
+                                            16, 2.0, 5.0, 4, device=dev)
+            if draws is None:
+                draws = update.draw(optim.make_generator(0, "cpu"), data)
+            params = sac.init_sac(optim.make_generator(1, "cpu"), 3, 1, 32)
+            params = optim.tree_map(lambda t: t.to(dev), params)
+            state, *metrics = update(sac.init_state(params, *opts), data,
+                                     draws=draws)
+            out[dev] = [t.cpu() for t in optim.tree_leaves(state[0])
+                        + optim.tree_leaves(state[1]) + metrics]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(out["cuda"], out["cpu"]):      # by relative norm
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm())
