@@ -144,11 +144,37 @@ script exits non-zero without a result line:
                equal the in-process engine's given the dict spec;
                serve.shutdown and rt.shutdown leave no worker and no
                store segment.
+ 21. train_runtime — the trainer, from a driver that never creates a
+               CUDA context: GpuTrainer.fit() (one num_gpus=1 worker,
+               FailureConfig(max_failures=1)) runs train_mesh's step
+               (llama-1b at full width, Adafactor, donate_state, batch 4
+               x 2048, seed 0, the same batch) for its 8 steps under the
+               session's telemetry, each reported with its loss and the
+               B1-B3 launches counted in the worker; after step 4 the
+               worker saves a ≈ 6 GB checkpoint with Checkpoint.
+               save_pytree (DCP), reports it and dies (os._exit); fit()
+               restarts it once and the new process loads the checkpoint
+               into init_state's tree and runs steps 5-8.  The 8 losses
+               must equal train_mesh's bit for bit, each kernel 16
+               launches a step, one restart into a new process, only the
+               worker holding a CUDA context (nvidia-smi polled during
+               fit()), telemetry's restart_recovery above 0 and an MFU
+               from the card's peak, no worker left; prints tokens/s and
+               step ms p50 against train_mesh's, save and load seconds and
+               bytes, the seconds from the crash to attempt 1's first
+               step, the worker's peak memory and the disk's free space
+               before the save.  Then MeshGroup(num_hosts=1,
+               devices_per_host=1) at its default platform forms an NCCL
+               group of one rank on the card, which all-reduces a CUDA
+               tensor and round-trips a small llama's TrainState through
+               save_pytree/load_pytree with the group live, both bit for
+               bit; its rank must be gone after shutdown.
 
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its
 main paths — serve, serve_lora, serve_8b (int8, bf16), runtime and
 serve_runtime for
-B4, train, train_moe, train_mesh, ring and pipeline for B1-B3, each
+B4, train, train_moe, train_mesh, ring, pipeline and train_runtime for
+B1-B3, each
 counted from 0 just before its path and read just after — max error, B4
 also at llama-8b's shape, times two ways (see `time_ms`), the host's
 time to issue one call, the card's bound, the kernel / library ratio), the
@@ -3391,6 +3417,348 @@ def phase_serve_runtime(torch, serve, runtime):
     return out, traffic["kernel_launches"]
 
 
+# ---------------------------------------------------------------------------
+# 21. train_runtime: GpuTrainer.fit() with a crash and a resume
+# ---------------------------------------------------------------------------
+TRAIN_RUN = "train_runtime"
+TRAIN_SAVE_AT = 4          # attempt 0 saves after this step, then dies
+# The checkpoint: 1,498,482,688 f32 parameters, Adafactor's factored
+# rows and columns, the step — about 6.0 GB.
+TRAIN_CKPT_BYTES = 6.0e9
+CONTEXT_POLL_S = 0.5
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def trainer_loop(config):
+    """The train_runtime phase's loop, in GpuTrainer's num_gpus=1 worker:
+    phase_train_mesh's step (llama-1b at full width, bf16, a mesh of
+    one, Adafactor, donate_state, batch 4 x 2048, remat "names",
+    xent_chunk 2048, attn_block_k 1024, seed 0, the same numpy batch)
+    for MESH_TRAIN's 8 steps, each under telemetry's device_step and
+    reported with its loss, grad norm, ms and B1-B3 launches counted in
+    this process.  Attempt 0 saves a checkpoint after TRAIN_SAVE_AT
+    steps, reports it and dies without cleanup; attempt 1 loads it into
+    init_state's tree and runs the remaining steps."""
+    import torch
+    from ray_tpu_torch.ops import attention as fa
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.train import Checkpoint, session, telemetry
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer)
+    t_start = time.time()
+    ctx = session.get_context()
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=True,
+                    remat_policy="names", xent_chunk=2048,
+                    attn_block_k=1024)
+    mesh = make_mesh(MeshSpec(), devices=[torch.device("cuda", 0)])
+    step = CompiledTrainStep(cfg, mesh, optimizer=make_optimizer(
+        total_steps=1000, kind="adafactor"), donate_state=True)
+    # Telemetry first: its restart gap ends here, and the load below is
+    # charged to its checkpoint phase (and counted as a disk read).
+    tel = ctx.telemetry(tokens_per_step=B * S,
+                        flops_per_token=step.flops_per_token(S),
+                        peak_flops=telemetry.peak_flops_for(
+                            torch.cuda.get_device_name(0)))
+    tel.register_jit(step)
+    state = step.init_state(seed=0)
+    restored = ctx.get_checkpoint()
+    load = None
+    if restored is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tel.checkpoint():
+            state = restored.load_pytree(state)
+            torch.cuda.synchronize()
+        load = {"s": time.perf_counter() - t0,
+                "bytes": dir_bytes(restored.path)}
+    batch = step.shard_batch(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32))
+    torch.cuda.synchronize()
+    attempt = {"attempt": int(restored is not None), "pid": os.getpid(),
+               "setup_s": time.time() - t_start, "load": load,
+               "cuda_visible_devices":
+                   os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "device": str(batch.device)}
+    torch.cuda.reset_peak_memory_stats()
+    total = MESH_TRAIN["warmup"] + MESH_TRAIN["timed"]
+    while state.step < total:
+        before = dict(fa.launches)
+        started = time.time()
+        t = time.perf_counter()
+        with tel.device_step():
+            state, m = step(state, batch)
+            loss = m["loss"].item()                 # syncs
+        step_s = time.perf_counter() - t
+        tel.end_step()
+        metrics = {"step": state.step, "loss": loss,
+                   "grad_norm": m["grad_norm"].item(),
+                   "step_ms": step_s * 1e3, "started_ts": started,
+                   "launches": {n: fa.launches[n] - before[n]
+                                for n in before},
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   **attempt}
+        attempt = {"attempt": attempt["attempt"], "pid": attempt["pid"]}
+        saved = None
+        if restored is None and state.step == TRAIN_SAVE_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with tel.checkpoint():
+                saved = Checkpoint.save_pytree(
+                    os.path.join(ctx.get_trial_dir(),
+                                 f"ckpt_{state.step}"),
+                    state, metadata={"step": state.step})
+            metrics["save"] = {"s": time.perf_counter() - t0,
+                               "bytes": dir_bytes(saved.path)}
+            metrics["crash_ts"] = time.time()
+        session.report(metrics, checkpoint=saved)
+        if saved is not None:
+            os._exit(1)                   # dies without cleanup
+
+
+# The MeshGroup check's model: llama's layout at a small width (head
+# dim 64), one step from seed 0 on a batch of 2 x 256 tokens.
+MESH_GROUP_MODEL = dict(vocab_size=1024, d_model=512, n_heads=8,
+                        n_kv_heads=4, n_layers=2, d_ff=1024, max_seq=256,
+                        arch="llama")
+
+
+def mesh_group_rank(rank):
+    """On the MeshGroup's one rank (platform "gpu": NCCL, its card from
+    CUDA_VISIBLE_DEVICES): an all-reduce of a CUDA tensor, then the
+    TrainState of one step of a small llama through save_pytree and
+    load_pytree (into another init_state's tree) while the group is
+    live.  Returns what mesh_group_check holds it to."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.train.train_step import CompiledTrainStep
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [v for k in sorted(tree) for v in leaves(tree[k])]
+        return [tree]
+
+    x = torch.randn(1 << 20, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    y = x.clone()
+    dist.all_reduce(y)
+    cfg = TransformerConfig(**MESH_GROUP_MODEL, dtype=torch.bfloat16)
+    step = CompiledTrainStep(cfg)
+    batch = step.shard_batch(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, cfg.max_seq + 1)).astype(np.int32))
+    state, metrics = step(step.init_state(seed=0), batch)
+    path = tempfile.mkdtemp(prefix="chip_smoke_mesh_group_")
+    try:
+        Checkpoint.save_pytree(path, state)
+        loaded = Checkpoint(path).load_pytree(step.init_state(seed=1))
+        pairs = list(zip(leaves({"p": state.params, "o": state.opt_state}),
+                         leaves({"p": loaded.params,
+                                 "o": loaded.opt_state})))
+        equal = loaded.step == state.step and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in pairs)
+        nbytes = dir_bytes(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"pid": os.getpid(), "backend": dist.get_backend(),
+            "world": dist.get_world_size(), "device": str(y.device),
+            "all_reduce_equal": torch.equal(x, y),
+            "loss": float(metrics["loss"]), "leaves": len(pairs),
+            "checkpoint_bytes": nbytes, "checkpoint_equal": equal}
+
+
+def mesh_group_check(rt, pids):
+    """`MeshGroup(num_hosts=1, devices_per_host=1)` at its default
+    platform ("gpu"): one rank on the card, NCCL, `mesh_group_rank` run
+    on it.  Adds the rank's pid to `pids`, so that the driver's last
+    check sees it gone.  Raises unless the group is NCCL at world size
+    1, the all-reduce and the checkpoint round trip are bit-equal and
+    the loss is finite."""
+    from ray_tpu_torch.parallel.mesh_group import MeshGroup
+    t0 = time.time()
+    mg = MeshGroup(num_hosts=1, devices_per_host=1)
+    try:
+        pids.update(session_workers(rt))
+        counts = mg.device_counts()
+        got = mg.run(mesh_group_rank, timeout=RUNTIME_TIMEOUT)[0]
+    finally:
+        mg.shutdown()
+    pids.add(got["pid"])
+    got.update(counts=counts, s=time.time() - t0)
+    if not (got["backend"] == "nccl" and got["world"] == 1
+            and got["device"].startswith("cuda")
+            and counts == [{"local": 1, "global": 1, "rank": 0,
+                            "global_rank": 0}]
+            and got["all_reduce_equal"] and got["checkpoint_equal"]
+            and math.isfinite(got["loss"])):
+        raise AssertionError(f"mesh_group: {got}")
+    return got
+
+
+def train_driver() -> int:
+    """The train_runtime phase's driver, in a process of its own that
+    never touches CUDA: GpuTrainer(trainer_loop, num_workers=1,
+    use_gpu=True, max_failures=1) with its checkpoints in a temporary
+    directory (removed after).  While fit() runs, nvidia-smi's count of
+    compute contexts is polled and the session's workers collected.
+    Then `mesh_group_check` forms a one-rank NCCL MeshGroup on the
+    card.  Prints one JSON line; any failed check raises."""
+    import tempfile
+    import threading
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (FailureConfig, GpuTrainer, RunConfig,
+                                     ScalingConfig, telemetry)
+    out = {}
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    t0 = time.time()
+    rt.init(num_cpus=4)
+    store = rt._session.node_service.store_path
+    pids = session_workers(rt)
+    try:
+        out["init_s"] = time.time() - t0
+        usage = shutil.disk_usage(storage)
+        out["disk_before_save"] = {"path": storage, "free": usage.free,
+                                   "total": usage.total}
+        print(f"train_runtime: {usage.free} bytes free of {usage.total} "
+              f"under {storage}", file=sys.stderr, flush=True)
+        if usage.free < 1.5 * TRAIN_CKPT_BYTES:
+            raise AssertionError(f"{usage.free} bytes free under {storage}:"
+                                 f" the ≈ {TRAIN_CKPT_BYTES:.3g}-byte "
+                                 "checkpoint needs more")
+        contexts = {"before": cuda_context_count(), "during": []}
+        done = threading.Event()
+
+        def watch():
+            while not done.wait(CONTEXT_POLL_S):
+                contexts["during"].append(cuda_context_count())
+                pids.update(session_workers(rt))
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t1 = time.time()
+        try:
+            result = GpuTrainer(
+                trainer_loop, train_loop_config={},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(
+                    name=TRAIN_RUN, storage_path=storage,
+                    failure_config=FailureConfig(max_failures=1))).fit()
+        finally:
+            done.set()
+            watcher.join(timeout=60)
+        out["fit_s"] = time.time() - t1
+        # fit() kills its worker without waiting for the process to go:
+        # give its context a moment to be released.
+        deadline = time.time() + 30
+        contexts["after"] = cuda_context_count()
+        while contexts["after"] > contexts["before"] and (
+                time.time() < deadline):
+            time.sleep(CONTEXT_POLL_S)
+            contexts["after"] = cuda_context_count()
+        out["contexts"] = contexts
+        out["error"] = repr(result.error) if result.error else None
+        out["rows"] = result.metrics_dataframe
+        out["checkpoint"] = (result.checkpoint.metadata()
+                             if result.checkpoint else None)
+        snap = telemetry.read_snapshots(rt._ensure_connected(),
+                                        TRAIN_RUN).get(0, {})
+        out["telemetry"] = {k: snap.get(k) for k in (
+            "restarts", "step_index", "ledger", "phases", "tokens_per_s",
+            "mfu", "flops_per_token", "ckpt_reads", "wall_s")}
+        pids |= {r["pid"] for r in out["rows"]}
+        out["mesh_group"] = mesh_group_check(rt, pids)
+    finally:
+        pids |= session_workers(rt)
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return after_shutdown(torch, out, pids, store)
+
+
+def phase_train_runtime(torch, train_mesh):
+    """Run `train_driver` in a process of its own and check it: the 8
+    losses equal train_mesh's bit for bit across the crash; B1-B3 16
+    launches each a step in the worker; one restart into a new process;
+    no CUDA context but the worker's; the telemetry's restart_recovery
+    above 0 and an MFU from the card's peak; no worker left.  Returns
+    (record, B1-B3 launches in the worker)."""
+    drv, driver_s = run_driver("train_driver")
+    rows, tel = drv.pop("rows"), drv["telemetry"]
+    n_layers = preset_kwargs(torch)["n_layers"]
+    total = MESH_TRAIN["warmup"] + MESH_TRAIN["timed"]
+    losses = [r["loss"] for r in rows]
+    attempts = [r["attempt"] for r in rows]
+    pids = {a: {r["pid"] for r in rows if r["attempt"] == a} for a in (0, 1)}
+    launches = {n: sum(r["launches"][n] for r in rows)
+                for n in rows[0]["launches"]} if rows else {}
+    contexts = drv["contexts"]
+    failures = []
+    if drv["error"] is not None:
+        failures.append(f"fit() failed: {drv['error']}")
+    if [r["step"] for r in rows] != list(range(1, total + 1)):
+        failures.append(f"steps {[r['step'] for r in rows]}")
+    if losses != train_mesh["losses"]:
+        failures.append(f"losses {losses} differ from train_mesh's "
+                        f"{train_mesh['losses']}")
+    if any(c != n_layers for r in rows for c in r["launches"].values()):
+        failures.append(f"launches per step "
+                        f"{[r['launches'] for r in rows]}: {n_layers} each")
+    if (attempts != [0] * TRAIN_SAVE_AT + [1] * (total - TRAIN_SAVE_AT)
+            or len(pids[0]) != 1 or len(pids[1]) != 1
+            or pids[0] == pids[1] or tel["restarts"] != 1):
+        failures.append(f"not one restart into a new process: attempts "
+                        f"{attempts}, pids {pids}, restarts "
+                        f"{tel['restarts']}")
+    if (max(contexts["during"], default=0) != contexts["before"] + 1
+            or contexts["after"] != contexts["before"]
+            or drv["driver_cuda_initialized"]):
+        failures.append(f"CUDA contexts not the worker's alone: {contexts}")
+    if not (tel["ledger"] or {}).get("restart_recovery", 0) > 0 or not (
+            tel["mfu"] or 0) > 0:
+        failures.append(f"telemetry: {tel}")
+    if failures:
+        keep = ("step", "attempt", "loss", "step_ms", "save", "load",
+                "setup_s", "crash_ts", "started_ts", "peak_mem_gb")
+        raise AssertionError(f"train_runtime: {failures}; rows " + json.dumps(
+            [{k: r[k] for k in keep if k in r} for r in rows]))
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    # Each attempt's first two steps are its warm-up, as train_mesh's.
+    warm = [r["step_ms"] for r in rows
+            if r["step"] not in (1, 2, TRAIN_SAVE_AT + 1, TRAIN_SAVE_AT + 2)]
+    p50 = statistics.median(warm)
+    save = next(r["save"] for r in rows if "save" in r)
+    crash_ts = next(r["crash_ts"] for r in rows if "crash_ts" in r)
+    first1 = next(r for r in rows if r["attempt"] == 1)
+    out = {"phase": "train_runtime", "model": "llama-1b",
+           "dtype": "bfloat16", "card": card_name_and_limit(),
+           "driver_s": driver_s, **drv,
+           "losses": losses, "losses_equal_train_mesh": True,
+           "steps_timed": len(warm), "step_ms": [r["step_ms"] for r in rows],
+           "step_ms_p50": p50, "tokens_per_s": B * S / (p50 / 1e3),
+           "train_mesh": {"step_ms_p50": train_mesh["step_ms_p50"],
+                          "tokens_per_s": train_mesh["tokens_per_s"]},
+           "tokens_per_s_vs_train_mesh":
+               B * S / (p50 / 1e3) / train_mesh["tokens_per_s"],
+           "save_s": save["s"], "load_s": first1["load"]["s"],
+           "checkpoint_bytes": save["bytes"],
+           "crash_to_first_step_s": first1["started_ts"] - crash_ts,
+           "setup_s": {a: next(r["setup_s"] for r in rows
+                               if r["attempt"] == a and "setup_s" in r)
+                       for a in (0, 1)},
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+           "launches": launches}
+    return out, launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -3515,6 +3883,10 @@ def main() -> int:
     # llama-1b in a num_gpus=1 replica that decodes through B4
     served, served_launches = phase_serve_runtime(torch, serve, runtime)
     emit(served)
+    # 21. the trainer: GpuTrainer.fit() trains llama-1b in a num_gpus=1
+    # worker through B1-B3, which dies after a checkpoint and resumes
+    trained, trainer_launches = phase_train_runtime(torch, train_mesh)
+    emit(trained)
 
     kernels = [{
         "name": "paged_attention",
@@ -3544,12 +3916,13 @@ def main() -> int:
             "replaces": where,
             "launches": train_launches[kname] + moe_launches[kname]
             + mesh_launches[kname] + ring_launches[kname]
-            + pipe_launches[kname],
+            + pipe_launches[kname] + trainer_launches[kname],
             "launches_by_path": {"train": train_launches[kname],
                                  "train_moe": moe_launches[kname],
                                  "train_mesh": mesh_launches[kname],
                                  "ring": ring_launches[kname],
-                                 "pipeline": pipe_launches[kname]},
+                                 "pipeline": pipe_launches[kname],
+                                 "train_runtime": trainer_launches[kname]},
             "max_abs_err": t["max_abs_err"],
             **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})

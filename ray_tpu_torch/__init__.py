@@ -26,9 +26,13 @@ workers pinned to their GPUs by `CUDA_VISIBLE_DEVICES`.  A CUDA tensor
 crosses the object store as a CPU tensor of the same dtype and shape.
 Its session directories (`<temp dir>/ray_tpu_torch`), store segments
 (`/dev/shm/rtorch_*`) and native build (`_build/`) are its own, so both
-runtimes can run side by side.  Not ported yet: the xlasan sanitizer,
-workflows and DAG `.bind`, Serve's deployments, util.state, the
-dashboard and the CLI (ROADMAP.md, Queue A).
+runtimes can run side by side.  On it run Serve (`serve/`) and the
+trainer (`train/`: `GpuTrainer`, sessions, checkpoints on
+`torch.distributed.checkpoint`, telemetry, elastic gangs), with
+`parallel/mesh_group.py` ganging one rank per GPU into a
+`torch.distributed` world through placement groups.  Not ported yet:
+the xlasan sanitizer, workflows and DAG `.bind`, Data, util.state,
+the dashboard and the CLI (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations

@@ -22,6 +22,12 @@ import os
 import threading
 from typing import Dict, List, Optional
 
+# What an entry point says when it needs a GPU and there is none
+# (`device.resolve_device`; `GpuTrainer` with use_gpu on a cluster
+# without the GPU resource).
+NO_GPU_MESSAGE = ("ray_tpu_torch runs on CUDA and no GPU is available; "
+                  "pass device='cpu' to run on the CPU explicitly")
+
 
 def visible_gpu_ids() -> Optional[List[str]]:
     """The devices CUDA_VISIBLE_DEVICES grants this process (None when

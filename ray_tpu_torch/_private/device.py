@@ -11,6 +11,8 @@ from typing import Union
 
 import torch
 
+from ray_tpu_torch._private.accelerators import NO_GPU_MESSAGE
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -19,9 +21,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     required (no device given, or a cuda device named) but absent."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError(
-                "ray_tpu_torch runs on CUDA and no GPU is available; "
-                "pass device='cpu' to run on the CPU explicitly")
+            raise RuntimeError(NO_GPU_MESSAGE)
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -266,3 +266,33 @@ def test_flash_auto_raises_on_cuda_shapes_the_kernels_do_not_take():
         with pytest.raises(ValueError, match=match):
             fa.attention_with_lse(q, k, k, True, impl="auto")
     assert fa.launches == before
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_of_cuda_state(tmp_path):
+    """Checkpoint.save_pytree / load_pytree (DCP in one process) of a
+    bf16 and f32 state on the card: loaded in place into the template's
+    CUDA tensors, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ray_tpu_torch.train import Checkpoint
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def state(scale):
+        return {"step": 3, "params": {
+            "w": torch.randn(256, 128, generator=gen, device="cuda")
+            .mul(scale).to(torch.bfloat16),
+            "v": torch.randn(128, generator=gen, device="cuda")}}
+
+    saved = state(1.0)
+    ckpt = Checkpoint.save_pytree(str(tmp_path / "ck"), saved)
+    template = state(0.0)
+    template["step"] = 0
+    loaded = ckpt.load_pytree(template)
+    assert loaded["step"] == 3
+    for key, want in saved["params"].items():
+        got = loaded["params"][key]
+        assert got is template["params"][key]
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got, want)

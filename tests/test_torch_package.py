@@ -69,6 +69,11 @@ def test_every_port_module_imports_with_jax_blocked():
     assert {f"ray_tpu_torch._private.{m}" for m in (
         "node_service", "client", "worker_main", "gcs", "shm_store",
         "serialization", "accelerators")} <= set(mods)
+    assert {"ray_tpu_torch.train", "ray_tpu_torch.parallel.mesh_group",
+            "ray_tpu_torch.util.placement_group"} | {
+        f"ray_tpu_torch.train.{m}" for m in (
+            "trainer", "session", "checkpoint", "elastic", "telemetry",
+            "train_step")} <= set(mods)
     code = ("import sys\n"
             + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
             + "import importlib\n"
