@@ -169,12 +169,41 @@ script exits non-zero without a result line:
                tensor and round-trips a small llama's TrainState through
                save_pytree/load_pytree with the group live, both bit for
                bit; its rank must be gone after shutdown.
+ 22. train_data — Data into train_mesh's step (llama-1b at full width,
+               bench.py's setting): a Dataset of 32 rows, 4 a block,
+               whose map_batches stage makes each row's 2,049 int64
+               tokens in the port's CPU workers (8 batches of 4 x 2049).
+               Run A (the reference) feeds the step the same batches
+               made in numpy here; run B feeds it
+               Dataset.iter_device_batches(batch_size=4, prefetch=2)
+               (pinned staging, a side copy stream) from a runtime in
+               this process, its last step under profiling.gpu_trace and
+               annotate("train_step"); run C trains through
+               GpuTrainer(datasets={"train": ds}) in a num_gpus=1 worker
+               from a driver that never creates a CUDA context, each
+               batch from get_dataset_shard("train").iter_batches under
+               telemetry's data_wait.  Runs B's and C's 8 losses must
+               equal run A's bit for bit, each of B1-B3 16 launches a
+               step, the batches int64 CUDA tensors from pinned buffers
+               (B) made in the port's workers, the trace must name B1-B3
+               and the range; no _SplitCoordinator or worker may be
+               left.  Then, in the same driver, util.collective over a
+               num_gpus=1 actor holding a 64 MiB f32 CUDA tensor and a
+               CPU actor holding a CPU tensor: allgather, allreduce and
+               broadcast equal numpy's, stay on each input's device, the
+               CUDA tensor updated in place; ms and GB/s of each op and
+               the share of the CUDA tensor's two host copies.  Prints
+               step ms p50, tokens/s and data-wait ms for runs A-C.
+
+Before phase 1, util.hwprobe.probe() checks the card in a subprocess
+(printed beside the script's own CUDA check, which it does not
+replace).
 
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its
 main paths — serve, serve_lora, serve_8b (int8, bf16), runtime and
 serve_runtime for
-B4, train, train_moe, train_mesh, ring, pipeline and train_runtime for
-B1-B3, each
+B4, train, train_moe, train_mesh, ring, pipeline, train_runtime,
+train_data and train_data_runtime for B1-B3, each
 counted from 0 just before its path and read just after — max error, B4
 also at llama-8b's shape, times two ways (see `time_ms`), the host's
 time to issue one call, the card's bound, the kernel / library ratio), the
@@ -1330,6 +1359,23 @@ def phase_train_e2e(torch, fa):
 MESH_TRAIN = dict(batch=4, seq=2048, warmup=2, timed=6)
 
 
+def mesh_train_step(torch):
+    """bench.py's llama-1b setting: (cfg, mesh, CompiledTrainStep) at
+    full width, bf16, remat "names", xent_chunk 2048, attn_block_k 1024,
+    on a one-device mesh of cuda:0 (a world-size-1 NCCL group), Adafactor
+    (total_steps 1000), donate_state."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
+                                                make_optimizer)
+    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=MESH_TRAIN["seq"],
+                    remat=True, remat_policy="names", xent_chunk=2048,
+                    attn_block_k=1024)
+    mesh = make_mesh(MeshSpec(), devices=[torch.device("cuda", 0)])
+    step = CompiledTrainStep(cfg, mesh, optimizer=make_optimizer(
+        total_steps=1000, kind="adafactor"), donate_state=True)
+    return cfg, mesh, step
+
+
 def phase_train_mesh(torch, fa):
     """CompiledTrainStep(cfg, make_mesh(MeshSpec(), devices=[cuda:0]),
     make_optimizer(total_steps=1000, kind="adafactor"), donate_state=True)
@@ -1338,17 +1384,9 @@ def phase_train_mesh(torch, fa):
     ln(vocab); each flash kernel launched once per layer per step."""
     import math
     from ray_tpu_torch.models.transformer import num_params
-    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from ray_tpu_torch.train import telemetry
-    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
-                                                make_optimizer)
     B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
-    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=True,
-                    remat_policy="names", xent_chunk=2048,
-                    attn_block_k=1024)
-    mesh = make_mesh(MeshSpec(), devices=[torch.device("cuda", 0)])
-    step = CompiledTrainStep(cfg, mesh, optimizer=make_optimizer(
-        total_steps=1000, kind="adafactor"), donate_state=True)
+    cfg, mesh, step = mesh_train_step(torch)
     t0 = time.time()
     state = step.init_state(seed=0)
     batch = step.shard_batch(np.random.RandomState(0).randint(
@@ -3445,19 +3483,11 @@ def trainer_loop(config):
     init_state's tree and runs the remaining steps."""
     import torch
     from ray_tpu_torch.ops import attention as fa
-    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from ray_tpu_torch.train import Checkpoint, session, telemetry
-    from ray_tpu_torch.train.train_step import (CompiledTrainStep,
-                                                make_optimizer)
     t_start = time.time()
     ctx = session.get_context()
     B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
-    cfg = train_cfg(torch, dtype=torch.bfloat16, max_seq=S, remat=True,
-                    remat_policy="names", xent_chunk=2048,
-                    attn_block_k=1024)
-    mesh = make_mesh(MeshSpec(), devices=[torch.device("cuda", 0)])
-    step = CompiledTrainStep(cfg, mesh, optimizer=make_optimizer(
-        total_steps=1000, kind="adafactor"), donate_state=True)
+    cfg, _, step = mesh_train_step(torch)
     # Telemetry first: its restart gap ends here, and the load below is
     # charged to its checkpoint phase (and counted as a disk read).
     tel = ctx.telemetry(tokens_per_step=B * S,
@@ -3759,6 +3789,454 @@ def phase_train_runtime(torch, train_mesh):
     return out, launches
 
 
+# -- Data into the trainer: iter_device_batches and GpuTrainer(datasets=) ----
+# A Dataset of TRAIN_DATA_ROWS rows {"seed": i}, TRAIN_DATA_BLOCK_ROWS a
+# block, through a map_batches stage in the port's CPU workers that makes
+# each row's 2,049 tokens (`tokenize_rows`, a stand-in for tokenization):
+# 8 batches of 4 x 2049 int64 tokens.  Run A (the reference) feeds
+# train_mesh's step those batches made in numpy here; run B feeds it
+# `iter_device_batches(batch_size=4, prefetch=2)` in this process; run C
+# trains through GpuTrainer(datasets=...) in a num_gpus=1 worker.  The
+# last of run B's steps runs under `gpu_trace` and `annotate`; step ms
+# p50 is over steps 3-7 of each run (2 warm-up steps, the profiled one
+# left out).
+TRAIN_DATA_ROWS = 32
+TRAIN_DATA_BLOCK_ROWS = 4
+TRAIN_DATA_SEED = 1000
+TRAIN_DATA_STEPS = TRAIN_DATA_ROWS // MESH_TRAIN["batch"]
+TRAIN_DATA_TIMED = slice(MESH_TRAIN["warmup"], TRAIN_DATA_STEPS - 1)
+TRAIN_DATA_RUN = "train_data_runtime"
+# The collective: a 64 MiB f32 tensor on each of two ranks, one on the
+# card and one on the CPU; each op checked once, then timed COLLECTIVE_REPS
+# times.
+COLLECTIVE_ELEMS = 16 * 2 ** 20
+COLLECTIVE_REPS = 3
+COLLECTIVE_SEED = 700
+COLLECTIVE_STORE_BYTES = 2 << 30
+
+
+def tokenize_rows(batch, vocab):
+    """The train_data phase's map_batches stage, run in the port's CPU
+    workers: each row's S + 1 int64 tokens from np.random.RandomState(
+    TRAIN_DATA_SEED + seed), and the pid of the process that made them."""
+    seeds = batch["seed"]
+    tokens = np.stack([np.random.RandomState(TRAIN_DATA_SEED + int(s))
+                       .randint(0, vocab, MESH_TRAIN["seq"] + 1)
+                       .astype(np.int64) for s in seeds])
+    return {"tokens": tokens, "pid": np.full(len(seeds), os.getpid())}
+
+
+def reference_batches(vocab):
+    """Run A's batches: `tokenize_rows`'s tokens made here, in order."""
+    B = MESH_TRAIN["batch"]
+    return [tokenize_rows({"seed": np.arange(i * B, (i + 1) * B)},
+                          vocab)["tokens"] for i in range(TRAIN_DATA_STEPS)]
+
+
+def token_dataset(rdata, vocab):
+    import functools
+    ds = rdata.from_items([{"seed": i} for i in range(TRAIN_DATA_ROWS)],
+                          block_rows=TRAIN_DATA_BLOCK_ROWS)
+    return ds.map_batches(functools.partial(tokenize_rows, vocab=vocab))
+
+
+def live_actors(rt):
+    """Class names of the session's actors that are not dead."""
+    return sorted(a.spec.get("class_name", "?") for a in list(
+        rt._session.node_service.actors.values()) if a.state != "dead")
+
+
+def data_steps(torch, fa, step, batches, profile_dir=None):
+    """train_mesh's step from init_state(seed=0) over TRAIN_DATA_STEPS of
+    `batches` (token arrays, or {"tokens", "pid"} batches): per step its
+    loss, ms, data-wait ms (the time to get the batch) and B1-B3
+    launches, and what each batch was; the last step under
+    gpu_trace(profile_dir) and annotate("train_step") when given."""
+    import contextlib
+
+    from ray_tpu_torch.util import profiling
+    state = step.init_state(seed=0)
+    torch.cuda.synchronize()
+    rows = []
+    it = iter(batches)
+    for i in range(TRAIN_DATA_STEPS):
+        t = time.perf_counter()
+        batch = next(it)
+        wait_s = time.perf_counter() - t
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        seen = {"type": type(tokens).__name__,
+                "dtype": str(getattr(tokens, "dtype", None)),
+                "device": str(getattr(tokens, "device", "host"))}
+        if isinstance(batch, dict):
+            seen["pids"] = sorted(set(batch["pid"].tolist()))
+        profiled = profile_dir is not None and i == TRAIN_DATA_STEPS - 1
+        with contextlib.ExitStack() as region:
+            if profiled:
+                region.enter_context(profiling.gpu_trace(profile_dir))
+                region.enter_context(profiling.annotate("train_step"))
+            before = dict(fa.launches)
+            t = time.perf_counter()
+            state, m = step(state, step.shard_batch(tokens))
+            loss = m["loss"].item()                 # syncs
+            step_s = time.perf_counter() - t
+        seen["tokens"] = (tokens.cpu().numpy() if hasattr(tokens, "cpu")
+                          else tokens)
+        rows.append({"loss": loss, "step_ms": step_s * 1e3,
+                     "data_wait_ms": wait_s * 1e3, "batch": seen,
+                     "launches": {n: fa.launches[n] - before[n]
+                                  for n in before}})
+    if next(it, None) is not None:
+        raise AssertionError(f"more than {TRAIN_DATA_STEPS} batches")
+    del state
+    return rows
+
+
+def run_summary(rows):
+    """Step ms p50 and tokens/s over the timed steps, data-wait ms a
+    step after the first, the losses."""
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    p50 = statistics.median([r["step_ms"] for r in rows][TRAIN_DATA_TIMED])
+    waits = [r["data_wait_ms"] for r in rows[1:]]
+    return {"losses": [r["loss"] for r in rows],
+            "step_ms": [r["step_ms"] for r in rows], "step_ms_p50": p50,
+            "tokens_per_s": B * S / (p50 / 1e3),
+            "data_wait_ms": [r["data_wait_ms"] for r in rows],
+            "data_wait_ms_after_first": {
+                "p50": statistics.median(waits), "max": max(waits)}}
+
+
+def train_data_loop(config):
+    """Run C's loop, in GpuTrainer's num_gpus=1 worker: train_mesh's step
+    over this rank's shard of the Dataset (`get_dataset_shard("train").
+    iter_batches(batch_size=4)`), each batch taken under telemetry's
+    data_wait and each step under device_step; reports per step the
+    loss, ms, data-wait ms, B1-B3 launches counted in this process, the
+    pids that made the batch and whether its tokens are run A's."""
+    import torch
+    from ray_tpu_torch.ops import attention as fa
+    from ray_tpu_torch.train import session, telemetry
+    ctx = session.get_context()
+    B, S = MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    cfg, _, step = mesh_train_step(torch)
+    tel = ctx.telemetry(tokens_per_step=B * S,
+                        flops_per_token=step.flops_per_token(S),
+                        peak_flops=telemetry.peak_flops_for(
+                            torch.cuda.get_device_name(0)))
+    tel.register_jit(step)
+    refs = reference_batches(cfg.vocab_size)
+    state = step.init_state(seed=0)
+    torch.cuda.synchronize()
+    batches = iter(session.get_dataset_shard("train").iter_batches(
+        batch_size=B))
+    while True:
+        t = time.perf_counter()
+        with tel.data_wait():
+            batch = next(batches, None)
+        wait_s = time.perf_counter() - t
+        if batch is None:
+            break
+        before = dict(fa.launches)
+        t = time.perf_counter()
+        with tel.device_step():
+            state, m = step(state, step.shard_batch(batch["tokens"]))
+            loss = m["loss"].item()                 # syncs
+        step_s = time.perf_counter() - t
+        tel.end_step()
+        session.report({
+            "step": state.step, "loss": loss, "step_ms": step_s * 1e3,
+            "data_wait_ms": wait_s * 1e3, "pid": os.getpid(),
+            "batch_pids": sorted(set(batch["pid"].tolist())),
+            "tokens_equal": bool(state.step <= len(refs) and np.array_equal(
+                batch["tokens"], refs[state.step - 1])),
+            "dtype": str(batch["tokens"].dtype),
+            "launches": {n: fa.launches[n] - before[n] for n in before}})
+
+
+def collective_values(rank):
+    return np.random.RandomState(COLLECTIVE_SEED + rank).standard_normal(
+        COLLECTIVE_ELEMS).astype(np.float32)
+
+
+class CollectiveRank:
+    """One rank of the train_data phase's two-rank collective group
+    ("chip_smoke"): holds a 64 MiB f32 tensor of `collective_values(
+    rank)` on `device`.  `run` checks allgather, allreduce (sum) and
+    broadcast (from rank 1, which first holds collective_values(2))
+    against numpy on the same values, that every result stays on the
+    tensor's device and that the tensor is updated in place, then times
+    each op; on the card also the tensor's copy to the host and back."""
+
+    def __init__(self, rank, device):
+        import torch
+        from ray_tpu_torch.util import collective as col
+        self.torch, self.col, self.rank = torch, col, rank
+        col.init_collective_group(2, rank, group_name="chip_smoke")
+        self.x = torch.from_numpy(collective_values(rank)).to(device)
+
+    def _sync(self):
+        if self.x.is_cuda:
+            self.torch.cuda.synchronize()
+
+    def _ms(self, fn):
+        times = []
+        for _ in range(COLLECTIVE_REPS):
+            self._sync()
+            t = time.perf_counter()
+            fn()
+            self._sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    def run(self):
+        col, x = self.col, self.x
+        a, b, d = (collective_values(r) for r in (0, 1, 2))
+        ptr, dev = x.data_ptr(), str(x.device)
+        checks = {}
+        got = col.allgather(x, "chip_smoke")
+        checks["allgather"] = (
+            len(got) == 2 and all(str(g.device) == dev for g in got)
+            and np.array_equal(got[0].cpu().numpy(), a)
+            and np.array_equal(got[1].cpu().numpy(), b))
+        out = col.allreduce(x, "sum", "chip_smoke")
+        checks["allreduce"] = (
+            out is x and x.data_ptr() == ptr and str(x.device) == dev
+            and np.array_equal(x.cpu().numpy(),
+                               np.sum(np.stack([a, b]), axis=0)))
+        if self.rank == 1:
+            x.copy_(self.torch.from_numpy(d))
+        out = col.broadcast(x, src_rank=1, group_name="chip_smoke")
+        checks["broadcast"] = (out is x and x.data_ptr() == ptr
+                               and np.array_equal(x.cpu().numpy(), d))
+        ms = {"allgather": self._ms(lambda: col.allgather(x, "chip_smoke")),
+              "allreduce": self._ms(
+                  lambda: col.allreduce(x, "sum", "chip_smoke")),
+              "broadcast": self._ms(lambda: col.broadcast(
+                  x, src_rank=1, group_name="chip_smoke"))}
+        res = {"rank": self.rank, "device": dev, "checks": checks,
+               "ms": ms, "bytes": x.nbytes,
+               "gb_per_s": {k: x.nbytes / (v / 1e3) / 1e9
+                            for k, v in ms.items()}}
+        if x.is_cuda:
+            host = x.cpu()
+            res["copy_ms"] = {"to_host": self._ms(lambda: x.cpu()),
+                              "from_host": self._ms(lambda: x.copy_(host))}
+        # The last broadcast's source must not delete its key before the
+        # other rank has read it.
+        col.barrier("chip_smoke")
+        col.destroy_collective_group("chip_smoke")
+        return res
+
+
+def collective_check(rt):
+    """CollectiveRank on the card (a num_gpus=1 actor) and on the CPU;
+    raises unless every check holds.  Returns the card rank's ms and
+    GB/s for each op and the share of each op's time that the CUDA
+    tensor's two host copies take."""
+    Rank = rt.remote(CollectiveRank)
+    ranks = [Rank.options(num_gpus=1).remote(0, "cuda"),
+             Rank.remote(1, "cpu")]
+    try:
+        got = rt.get([r.run.remote() for r in ranks],
+                     timeout=RUNTIME_TIMEOUT)
+    finally:
+        for r in ranks:
+            rt.kill(r)
+    if not all(all(g["checks"].values()) for g in got) or [
+            g["device"].split(":")[0] for g in got] != ["cuda", "cpu"]:
+        raise AssertionError(f"collective: {got}")
+    card = got[0]
+    copies = sum(card["copy_ms"].values())
+    card["host_copy_share"] = {k: copies / v for k, v in card["ms"].items()}
+    return {"card": card, "cpu": got[1]}
+
+
+def train_data_driver() -> int:
+    """Run C's driver, in a process of its own that never touches CUDA:
+    GpuTrainer(train_data_loop, datasets={"train": token_dataset(...)},
+    num_workers=1, use_gpu=True).fit(), nvidia-smi's context count
+    polled meanwhile; then no _SplitCoordinator or worker actor may be
+    left, and `collective_check` runs.  Prints one JSON line; any failed
+    check raises."""
+    import tempfile
+    import threading
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.models.transformer import PRESETS
+    from ray_tpu_torch.train import GpuTrainer, RunConfig, ScalingConfig
+    out = {}
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_data_")
+    # The collective pins up to three 64 MiB payloads a rank in the store.
+    rt.init(num_cpus=4, object_store_memory=COLLECTIVE_STORE_BYTES)
+    store = rt._session.node_service.store_path
+    pids = session_workers(rt)
+    try:
+        contexts = {"before": cuda_context_count(), "during": []}
+        done = threading.Event()
+
+        def watch():
+            while not done.wait(CONTEXT_POLL_S):
+                contexts["during"].append(cuda_context_count())
+                pids.update(session_workers(rt))
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.time()
+        try:
+            ds = token_dataset(rdata, PRESETS["llama-1b"].vocab_size)
+            result = GpuTrainer(
+                train_data_loop, train_loop_config={},
+                datasets={"train": ds},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(name=TRAIN_DATA_RUN,
+                                     storage_path=storage)).fit()
+            out["fit_s"] = time.time() - t0
+            deadline = time.time() + 30
+            while (live_actors(rt) or cuda_context_count()
+                   > contexts["before"]) and time.time() < deadline:
+                time.sleep(CONTEXT_POLL_S)
+            out["actors_after_fit"] = live_actors(rt)
+            contexts["after_fit"] = cuda_context_count()
+            t1 = time.time()
+            out["collective"] = collective_check(rt)
+            out["collective_s"] = time.time() - t1
+        finally:
+            done.set()
+            watcher.join(timeout=60)
+        out["contexts"] = contexts
+        out["error"] = repr(result.error) if result.error else None
+        out["rows"] = result.metrics_dataframe
+        pids |= {r["pid"] for r in out["rows"]}
+        pids |= {p for r in out["rows"] for p in r["batch_pids"]}
+    finally:
+        pids |= session_workers(rt)
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return after_shutdown(torch, out, pids, store)
+
+
+def phase_train_data(torch, fa):
+    """Runs A, B and C (see TRAIN_DATA_ROWS) and the collective; raises
+    unless runs B's and C's losses equal run A's bit for bit, each of
+    B1-B3 is launched n_layers times a step in B and C, run B's batches
+    are int64 CUDA tensors staged through pinned buffers and made in the
+    port's workers, the trace names B1-B3 and the train_step range, no
+    CUDA context but the worker's and the card rank's, and nothing is
+    left.  Returns (record, B1-B3 launches of run B, of run C)."""
+    import glob
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.data import _device
+    t0 = time.time()
+    cfg, _, step = mesh_train_step(torch)
+    n_layers = cfg.n_layers
+    refs = reference_batches(cfg.vocab_size)
+    # Run A: the reference, batches made here.
+    for name in fa.launches:
+        fa.launches[name] = 0
+    run_a = data_steps(torch, fa, step, refs)
+    # Run B: iter_device_batches from this process's own runtime.
+    profile_dir = tempfile.mkdtemp(prefix="chip_smoke_gpu_trace_")
+    rt.init(num_cpus=4)
+    store = rt._session.node_service.store_path
+    pids = session_workers(rt)
+    try:
+        ds = token_dataset(rdata, cfg.vocab_size)
+        for k in _device.COUNTS:
+            _device.COUNTS[k] = 0
+        for name in fa.launches:
+            fa.launches[name] = 0
+        run_b = data_steps(torch, fa, step, ds.iter_device_batches(
+            batch_size=MESH_TRAIN["batch"], prefetch=2), profile_dir)
+        b_launches = dict(fa.launches)
+        pinned = dict(_device.COUNTS)
+        pids |= session_workers(rt)
+    finally:
+        rt.shutdown()
+    left = {"workers": live_workers(pids),
+            "segments": session_segments(store)}
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    trace = open(traces[0]).read() if len(traces) == 1 else ""
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    del step
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    in_process_s = time.time() - t0
+    # Run C: through the trainer, from a driver without a CUDA context.
+    drv, driver_s = run_driver("train_data_driver")
+    rows_c = drv.pop("rows")
+    c_launches = ({n: sum(r["launches"][n] for r in rows_c)
+                   for n in rows_c[0]["launches"]} if rows_c else {})
+    contexts = drv["contexts"]
+    ref_losses = [r["loss"] for r in run_a]
+    failures = []
+    if [r["loss"] for r in run_b] != ref_losses:
+        failures.append("run B's losses differ from run A's")
+    if [r["loss"] for r in rows_c] != ref_losses:
+        failures.append("run C's losses differ from run A's")
+    for name, rows in (("A", run_a), ("B", run_b), ("C", rows_c)):
+        if any(c != n_layers for r in rows for c in r["launches"].values()):
+            failures.append(f"run {name} launches per step "
+                            f"{[r['launches'] for r in rows]}")
+    data_pids = {p for r in run_b for p in r["batch"]["pids"]} | {
+        p for r in rows_c for p in r["batch_pids"]}
+    if not data_pids or os.getpid() in data_pids or \
+            not data_pids <= pids | set(drv["worker_pids"]):
+        failures.append(f"batches made by {data_pids}, not the port's "
+                        "workers")
+    if any((r["batch"]["type"], r["batch"]["dtype"],
+            r["batch"]["device"].split(":")[0])
+           != ("Tensor", "torch.int64", "cuda") or
+           not np.array_equal(r["batch"]["tokens"], ref)
+           for r, ref in zip(run_b, refs)) or \
+            pinned["pinned_batches"] != TRAIN_DATA_STEPS:
+        failures.append(f"run B's batches: {[r['batch']['device'] for r in run_b]}"
+                        f", {pinned}")
+    if len(rows_c) != TRAIN_DATA_STEPS or not all(
+            r["tokens_equal"] and r["dtype"] == "int64" for r in rows_c):
+        failures.append(f"run C's batches: {len(rows_c)}")
+    if not (len(traces) == 1 and "train_step" in trace and all(
+            k in trace for k in ("flash_fwd", "flash_bwd_dkdv",
+                                 "flash_bwd_dq"))):
+        failures.append(f"gpu_trace wrote {traces}, without the kernels "
+                        "or the train_step range")
+    if (max(contexts["during"], default=0) != contexts["before"] + 1
+            or contexts["after_fit"] != contexts["before"]
+            or drv["driver_cuda_initialized"]):
+        failures.append(f"CUDA contexts: {contexts}")
+    if drv["actors_after_fit"] or left["workers"] or left["segments"]:
+        failures.append(f"left after fit: {drv['actors_after_fit']}; "
+                        f"after run B: {left}")
+    if drv["error"] is not None:
+        failures.append(f"fit() failed: {drv['error']}")
+    if failures:
+        raise AssertionError(f"train_data: {failures}; losses A "
+                             f"{ref_losses} B {[r['loss'] for r in run_b]} "
+                             f"C {[r['loss'] for r in rows_c]}")
+    for r in run_b:
+        del r["batch"]["tokens"]
+    summary = {k: run_summary(rows) for k, rows in
+               (("A", run_a), ("B", run_b), ("C", rows_c))}
+    out = {"phase": "train_data", "model": "llama-1b", "dtype": "bfloat16",
+           "card": card_name_and_limit(), "rows": TRAIN_DATA_ROWS,
+           "block_rows": TRAIN_DATA_BLOCK_ROWS,
+           "batch_bytes": refs[0].nbytes, "steps": TRAIN_DATA_STEPS,
+           "timed_steps": [TRAIN_DATA_TIMED.start + 1, TRAIN_DATA_TIMED.stop],
+           "losses_equal": True, "runs": summary,
+           "step_ms_p50_vs_A": {k: summary[k]["step_ms_p50"]
+                                / summary["A"]["step_ms_p50"]
+                                for k in ("B", "C")},
+           "pinned": pinned, "data_pids": sorted(data_pids),
+           "in_process_s": in_process_s, "driver_s": driver_s,
+           "fit_s": drv["fit_s"], "collective": drv["collective"],
+           "collective_s": drv["collective_s"], "contexts": contexts,
+           "launches": {"B": b_launches, "C": c_launches}}
+    return out, b_launches, c_launches
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -3774,6 +4252,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from ray_tpu_torch.util import hwprobe
+    probe = hwprobe.probe()
+    emit({"phase": "hwprobe", "cuda_available": True, **probe})
+    if not probe["ok"]:
+        raise AssertionError(f"hwprobe failed with CUDA available: {probe}")
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
@@ -3887,6 +4370,11 @@ def main() -> int:
     # worker through B1-B3, which dies after a checkpoint and resumes
     trained, trainer_launches = phase_train_runtime(torch, train_mesh)
     emit(trained)
+    # 22. Data into the trainer: iter_device_batches in process and
+    # GpuTrainer(datasets=...) in a num_gpus=1 worker, against
+    # train_mesh's step on the same batches; the collective
+    data, data_launches, data_rt_launches = phase_train_data(torch, fa)
+    emit(data)
 
     kernels = [{
         "name": "paged_attention",
@@ -3916,13 +4404,17 @@ def main() -> int:
             "replaces": where,
             "launches": train_launches[kname] + moe_launches[kname]
             + mesh_launches[kname] + ring_launches[kname]
-            + pipe_launches[kname] + trainer_launches[kname],
+            + pipe_launches[kname] + trainer_launches[kname]
+            + data_launches[kname] + data_rt_launches[kname],
             "launches_by_path": {"train": train_launches[kname],
                                  "train_moe": moe_launches[kname],
                                  "train_mesh": mesh_launches[kname],
                                  "ring": ring_launches[kname],
                                  "pipeline": pipe_launches[kname],
-                                 "train_runtime": trainer_launches[kname]},
+                                 "train_runtime": trainer_launches[kname],
+                                 "train_data": data_launches[kname],
+                                 "train_data_runtime":
+                                     data_rt_launches[kname]},
             "max_abs_err": t["max_abs_err"],
             **{k: t[k] for k in KERNEL_TIME_KEYS}})
     emit({"kernels": kernels})

@@ -36,16 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ray_tpu_torch.experimental.channel import Channel, ChannelClosed
-
-# The reduce ops of ray_tpu/util/collective.py, which the port has not
-# ported yet (ROADMAP.md, Queue A, item A7).
-_REDUCERS = {
-    "sum": lambda stack: np.sum(stack, axis=0),
-    "prod": lambda stack: np.prod(stack, axis=0),
-    "max": lambda stack: np.max(stack, axis=0),
-    "min": lambda stack: np.min(stack, axis=0),
-    "mean": lambda stack: np.mean(stack, axis=0),
-}
+from ray_tpu_torch.util.collective import _REDUCERS
 
 
 def _run_collective(spec: dict, val: Any, client) -> Any:

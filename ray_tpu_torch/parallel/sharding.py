@@ -99,9 +99,11 @@ def tree_specs(logical_tree: Any, rules: Optional[Rules] = None,
 
 def is_dtensor(x) -> bool:
     """Whether `x` is a DTensor (without importing DTensor: none can
-    exist before its module is imported)."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
+    exist before its module is imported, or while another thread is
+    still importing it and the class is not defined yet)."""
+    cls = getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                  None)
+    return cls is not None and isinstance(x, cls)
 
 
 def mesh_trivial(mesh) -> bool:

@@ -5,10 +5,11 @@ plain function of parameter dicts, an optax-shaped Adam state, a batch
 and a torch.Generator (or the draws themselves): PPO with GAE, V-trace
 for IMPALA (MLP and conv policies) and APPO, double DQN with replay
 buffers and n-step folding, SAC, CQL, BC and MARWIL, and PPO per policy
-for multi-agent envs.  The offline algorithms `CQL` and `MARWIL` train
-end to end from in-memory data.  What samples through rollout-worker
-actors (the PPO, DQN, SAC, IMPALA, APPO, MultiAgentPPO and BC algorithms)
-waits for the actor runtime (ROADMAP A8b).
+for multi-agent envs.  The offline algorithms `CQL`, `MARWIL` and `BC`
+train end to end from in-memory data or from parquet through
+`ray_tpu_torch.data` (`log_transitions` writes it).  What samples
+through rollout-worker actors (the PPO, DQN, SAC, IMPALA, APPO and
+MultiAgentPPO algorithms) waits for their port (ROADMAP A8b).
 """
 
 from ray_tpu_torch.rllib.appo import APPOConfig, make_appo_update
@@ -25,13 +26,16 @@ from ray_tpu_torch.rllib.multi_agent import (MultiAgentCartPole,
                                              MultiAgentEnv,
                                              MultiAgentLearner,
                                              MultiAgentPPOConfig)
-from ray_tpu_torch.rllib.offline import (MARWIL, MARWILConfig,
-                                         collect_expert_episodes)
+from ray_tpu_torch.rllib.offline import (BC, MARWIL, BCConfig,
+                                         MARWILConfig,
+                                         collect_expert_episodes,
+                                         log_transitions)
 from ray_tpu_torch.rllib.optim import Adam, AdamState
 from ray_tpu_torch.rllib.ppo import PPOConfig
 
 __all__ = ["PPOConfig", "IMPALAConfig", "APPOConfig", "CQL", "CQLConfig",
-           "MARWIL", "MARWILConfig", "collect_expert_episodes",
+           "MARWIL", "MARWILConfig", "BC", "BCConfig",
+           "collect_expert_episodes", "log_transitions",
            "make_appo_update", "make_cql_update_fn", "make_vtrace_update",
            "Adam", "AdamState", "CartPoleEnv", "PendulumEnv",
            "PixelCartPoleEnv", "VectorEnv", "Connector",

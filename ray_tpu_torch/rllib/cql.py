@@ -7,10 +7,12 @@ actions and up on dataset actions,
     L_cons = E_s[ logsumexp_a Q(s, a) - E_{a~data} Q(s, a) ]
 
 estimated from K uniform actions and K policy actions at s and at s'
-(CQL(H)), each weighted by its log-density.  `CQL` trains from a dataset
-given as `data=` (columns obs, actions, rewards, next_obs, dones) on the
-learner's device and never touches an environment; `input_path=` (a
-parquet dataset) needs the port's `data` module (ROADMAP A7) and raises.
+(CQL(H)), each weighted by its log-density.  `CQL` trains on the
+learner's device from a dataset given as `data=` (columns obs, actions,
+rewards, next_obs, dones) or read from parquet with `input_path=`
+(columns obs, action, reward, next_obs, done, through
+`ray_tpu_torch.data.read_parquet`, as the JAX package reads it); it
+never touches an environment.
 """
 
 from __future__ import annotations
@@ -31,9 +33,23 @@ from ray_tpu_torch.rllib.sac import (actor_forward, init_sac, init_state,
                                      make_grad_step, min_q, q_value,
                                      sample_action)
 
-NEEDS_DATA_MODULE = ("{}: input_path= reads parquet through the port's "
-                     "data module, which is not ported yet (ROADMAP A7); "
-                     "pass the columns as data=")
+def read_transitions(path: str, columns: Dict[str, str]
+                     ) -> Dict[str, np.ndarray]:
+    """Logged transitions from a parquet dataset (`input_path=`), read
+    through the port's Data as the JAX package reads them: {name:
+    column} for each `columns` item name -> parquet column, floats as
+    f32 and `action` as stored (discrete actions stay integers)."""
+    from ray_tpu_torch import data as rdata
+    tbl = rdata.read_parquet(path).to_pandas()
+    out = {}
+    for name, col in columns.items():
+        values = tbl[col].to_numpy()
+        if values.dtype == object:          # list<float> rows
+            values = np.stack(values)
+        out[name] = (values if col == "action" and
+                     values.dtype.kind in "iu"
+                     else values.astype(np.float32))
+    return out
 
 
 def make_cql_update_fn(actor_opt: Adam, critic_opt: Adam, alpha_opt: Adam,
@@ -169,11 +185,14 @@ class CQL(RLCheckpointMixin):
                  ) -> None:
         self.config = config
         self.device = resolve_device(device)
-        if config.data is None:
-            if config.input_path:
-                raise NotImplementedError(NEEDS_DATA_MODULE.format("CQL"))
-            raise ValueError("CQLConfig needs input_path or data")
-        self.data = as_tensors(config.data, self.device)
+        data = config.data
+        if data is None:
+            if not config.input_path:
+                raise ValueError("CQLConfig needs input_path or data")
+            data = read_transitions(config.input_path, {
+                "obs": "obs", "actions": "action", "rewards": "reward",
+                "next_obs": "next_obs", "dones": "done"})
+        self.data = as_tensors(data, self.device)
         obs_size = int(self.data["obs"].shape[-1])
         act_size = int(self.data["actions"].shape[-1])
         self._rng = make_generator(config.seed, self.device)

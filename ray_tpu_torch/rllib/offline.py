@@ -1,19 +1,21 @@
-"""Offline RL: behavior cloning and MARWIL from logged transitions.
+"""Offline RL: trajectory logging, behavior cloning and MARWIL from
+logged transitions.
 
 Port of `ray_tpu/rllib/offline.py`.  `collect_expert_episodes` and
 `compute_returns` are numpy, copied from the JAX package.  BC and MARWIL
 minimize a (weighted) negative log-likelihood with minibatch steps whose
 indices are drawn first ([num_grad_steps, batch_size], from the learner's
-generator or given as `draws`).  `MARWIL` trains from `data=` on the
-learner's device; `input_path=`, `log_transitions` and the parquet-fed
-`BC` algorithm read and write parquet through the port's data module,
-which is not ported yet (ROADMAP A7, A8b).
+generator or given as `draws`).  The interchange format is the JAX
+package's: columnar parquet through `ray_tpu_torch.data`, one row per
+transition with columns obs (list<float>), action (int or list<float>),
+reward, done — `log_transitions` writes it, `MARWIL(input_path=)` reads
+it whole and `BC` streams it in read-batches.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,12 +23,27 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.rllib.checkpoint import RLCheckpointMixin
-from ray_tpu_torch.rllib.cql import NEEDS_DATA_MODULE
+from ray_tpu_torch.rllib.cql import read_transitions
 from ray_tpu_torch.rllib.env import CartPoleEnv
 from ray_tpu_torch.rllib.optim import (Adam, as_tensors, make_generator,
                                        randint, resolve_draws,
                                        value_and_grad)
 from ray_tpu_torch.rllib.ppo import init_policy, policy_forward, take
+
+
+def log_transitions(path: str, obs: np.ndarray, actions: np.ndarray,
+                    rewards: np.ndarray, dones: np.ndarray,
+                    block_rows: int = 4096) -> List[str]:
+    """Write transition columns as a parquet dataset (the
+    DatasetWriter role, rllib/offline/dataset_writer.py)."""
+    from ray_tpu_torch import data as rdata
+    ds = rdata.from_numpy({
+        "obs": np.asarray(obs, np.float32),
+        "action": np.asarray(actions),
+        "reward": np.asarray(rewards, np.float32),
+        "done": np.asarray(dones).astype(np.float32),
+    }, block_rows=block_rows)
+    return ds.write_parquet(path)
 
 
 def collect_expert_episodes(policy_fn: Callable[[np.ndarray], Any],
@@ -182,10 +199,11 @@ class MARWIL(RLCheckpointMixin):
         self.device = resolve_device(device)
         data = config.data
         if data is None:
-            if config.input_path:
-                raise NotImplementedError(
-                    NEEDS_DATA_MODULE.format("MARWIL"))
-            raise ValueError("MARWILConfig needs input_path or data")
+            if not config.input_path:
+                raise ValueError("MARWILConfig needs input_path or data")
+            data = read_transitions(config.input_path, {
+                "obs": "obs", "action": "action", "reward": "reward",
+                "done": "done"})
         returns = compute_returns(
             np.asarray(data["reward"], np.float32),
             np.asarray(data["done"]).astype(bool), config.gamma)
@@ -225,6 +243,103 @@ class MARWIL(RLCheckpointMixin):
 
     def evaluate(self, env_maker: Optional[Callable] = None,
                  num_episodes: int = 5, seed: int = 100) -> float:
+        maker = env_maker or (lambda s: CartPoleEnv(seed=s))
+        total = 0.0
+        for ep in range(num_episodes):
+            env = maker(seed + ep)
+            o, done = env.reset(), False
+            while not done:
+                o, r, done, _ = env.step(self.compute_action(o))
+                total += r
+        return total / num_episodes
+
+
+class BCConfig:
+    def __init__(self) -> None:
+        self.input_path: Optional[str] = None
+        self.obs_size = CartPoleEnv.observation_size
+        self.num_actions = CartPoleEnv.num_actions
+        self.lr = 1e-3
+        self.batch_size = 128
+        self.num_grad_steps = 64
+        self.read_batch_size = 4096
+        self.hidden = 64
+        self.seed = 0
+
+    def offline_data(self, **kw) -> "BCConfig":
+        for k, v in kw.items():
+            if not hasattr(self, k):
+                raise ValueError(f"unknown BC config option {k!r}")
+            setattr(self, k, v)
+        return self
+
+    training = offline_data
+    environment = offline_data
+
+    def build(self, device: DeviceLike = None) -> "BC":
+        return BC(self, device=device)
+
+
+class BC(RLCheckpointMixin):
+    """Behavior cloning from logged parquet transitions (reference:
+    rllib/algorithms/bc/bc.py trained purely from offline data via
+    the Data-backed reader, rllib/offline/dataset_reader.py)."""
+
+    _ckpt_attrs = ("params", "opt_state", "iteration")
+
+    def __init__(self, config: BCConfig, device: DeviceLike = None
+                 ) -> None:
+        if not config.input_path:
+            raise ValueError("BCConfig.input_path is required "
+                             "(offline_data(input_path=...))")
+        self.config = config
+        self.device = resolve_device(device)
+        from ray_tpu_torch import data as rdata
+        self._dataset = rdata.read_parquet(config.input_path)
+        self._rng = make_generator(config.seed, self.device)
+        self.params = init_policy(self._rng, config.obs_size,
+                                  config.num_actions, hidden=config.hidden)
+        self.optimizer = Adam(config.lr)
+        self.opt_state = self.optimizer.init(self.params)
+        self._update = make_bc_update_fn(
+            self.optimizer, config.batch_size, config.num_grad_steps,
+            device=self.device)
+        self.iteration = 0
+
+    def train(self, draws: Optional[Sequence[Dict[str, Any]]] = None
+              ) -> Dict[str, Any]:
+        """One pass over the offline dataset, streamed in read-batches;
+        each read-batch gets num_grad_steps minibatch steps.  `draws`,
+        one {"ix": [num_grad_steps, batch_size]} a read-batch, replaces
+        the learner's own draws."""
+        t0 = time.time()
+        losses = []
+        rows = 0
+        for i, batch in enumerate(self._dataset.iter_batches(
+                batch_size=self.config.read_batch_size)):
+            data = {"obs": np.asarray(batch["obs"], np.float32),
+                    "action": batch["action"]}
+            rows += int(data["obs"].shape[0])
+            self.params, self.opt_state, loss = self._update(
+                self.params, self.opt_state, data, self._rng,
+                draws=None if draws is None else draws[i])
+            losses.append(loss)
+        self.iteration += 1
+        return {"training_iteration": self.iteration,
+                "loss": (torch.stack(losses).mean().item()
+                         if losses else float("nan")),
+                "rows_this_iter": rows,
+                "time_this_iter_s": time.time() - t0}
+
+    @torch.no_grad()
+    def compute_action(self, obs: np.ndarray) -> int:
+        logits, _ = policy_forward(self.params, torch.as_tensor(
+            np.asarray(obs, np.float32), device=self.device))
+        return int(torch.argmax(logits))
+
+    def evaluate(self, env_maker: Optional[Callable] = None,
+                 num_episodes: int = 5, seed: int = 100) -> float:
+        """Greedy-policy rollouts in a live env; returns mean return."""
         maker = env_maker or (lambda s: CartPoleEnv(seed=s))
         total = 0.0
         for ep in range(num_episodes):

@@ -748,7 +748,7 @@ def run_elastic_attempt(trainer, trial_dir: str, manager, restore,
                else _TrainWorker)
         w = cls.remote(rank, world0, trial_dir,
                        trainer._config or {}, restore, report_ns,
-                       recovery_class)
+                       None, recovery_class)
         return w, w.run.remote((trainer._fn, trainer._config))
 
     workers: Dict[int, Any] = {}

@@ -40,7 +40,9 @@ class TrainContext:
                  trial_dir: str, restore_checkpoint: Optional[str],
                  config: Dict[str, Any],
                  report_ns: Optional[str] = None,
+                 dataset_shards: Optional[Dict[str, Any]] = None,
                  recovery_class: str = "restart_recovery") -> None:
+        self._dataset_shards = dict(dataset_shards or {})
         # Which goodput ledger class this worker's telemetry charges
         # its restore gap to: "restart_recovery" for a fresh attempt,
         # "resize_recovery" for an elastic grow-back replacement.
@@ -218,8 +220,11 @@ def report(metrics: Dict[str, Any],
 def get_dataset_shard(name: str = "train"):
     """This rank's DataIterator for a Dataset passed to
     GpuTrainer(datasets={name: ds}) (reference:
-    ray.train.get_dataset_shard).  Needs Data's streaming_split, which
-    the port does not have yet (ROADMAP A7)."""
-    raise NotImplementedError(
-        f"get_dataset_shard({name!r}): datasets need ray_tpu_torch.data's "
-        "streaming_split, which is not ported yet (ROADMAP A7)")
+    ray.train.get_dataset_shard)."""
+    ctx = get_context()
+    shards = getattr(ctx, "_dataset_shards", None) or {}
+    if name not in shards:
+        raise KeyError(
+            f"no dataset shard named {name!r}; trainer datasets: "
+            f"{sorted(shards)}")
+    return shards[name]

@@ -459,9 +459,16 @@ class CompiledTrainStep:
     def shard_batch(self, tokens) -> torch.Tensor:
         """Tokens [B, S+1] as an int64 tensor on this step's device; on a
         mesh, a DTensor split on the batch axis only (each rank keeps its
-        rows of the whole batch it is given)."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
-                                 device=self.device)
+        rows of the whole batch it is given).  A tensor already on the
+        device passes through without a host round trip, as
+        `jax.device_put` does."""
+        if isinstance(tokens, torch.Tensor):
+            if is_dtensor(tokens):
+                return tokens
+            tokens = tokens.to(self.device, torch.int64)
+        else:
+            tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                     device=self.device)
         if not self.sharded:
             return tokens
         return _place(tokens, self.mesh, self.data_placements)

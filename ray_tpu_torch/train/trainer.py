@@ -22,8 +22,8 @@ GPU differences from the JAX package:
 
 The driver never imports torch: trainer, session and checkpoint manager
 touch it only where a tensor is handled, in the workers.
-`datasets=` needs Data's streaming_split, which is not ported yet
-(ROADMAP A7): `fit()` raises naming it.
+`datasets=` gives each rank a `ray_tpu_torch.data` streaming split
+(`session.get_dataset_shard(name)`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -95,11 +95,13 @@ class _TrainWorker:
                  config: Dict[str, Any],
                  restore_checkpoint: Optional[str],
                  report_ns: str,
+                 dataset_shards: Optional[Dict[str, Any]] = None,
                  recovery_class: str = "restart_recovery") -> None:
         self._ctx = session_mod.TrainContext(
             world_size=world_size, world_rank=rank, trial_dir=trial_dir,
             restore_checkpoint=restore_checkpoint, config=config,
-            report_ns=report_ns, recovery_class=recovery_class)
+            report_ns=report_ns, dataset_shards=dataset_shards,
+            recovery_class=recovery_class)
         session_mod.set_context(self._ctx)
 
     def run(self, fn_and_cfg) -> Optional[str]:
@@ -138,18 +140,17 @@ class GpuTrainer:
         self._config = train_loop_config
         self._scaling = scaling_config or ScalingConfig()
         self._run_config = run_config or RunConfig()
+        # {name: Dataset}: each is streaming_split across the workers;
+        # inside the loop, session.get_dataset_shard(name) yields this
+        # rank's DataIterator (reference: DataParallelTrainer datasets=
+        # + ray.train.get_dataset_shard).
         self._datasets = datasets or {}
         self._stragglers_captured: set = set()
 
     # ------------------------------------------------------------------
     def _check_start(self) -> None:
-        """What fails before any worker is spawned: datasets (A7), and
-        GPU workers on a cluster that has no GPU."""
-        if self._datasets:
-            raise NotImplementedError(
-                "GpuTrainer(datasets=...) shards Datasets with "
-                "streaming_split, which ray_tpu_torch.data does not have "
-                "yet (ROADMAP A7); pass batches through the loop config")
+        """What fails before any worker is spawned: GPU workers on a
+        cluster that has no GPU."""
         s = self._scaling
         if s.use_gpu:
             need = s.gpus_per_worker or 1
@@ -297,18 +298,34 @@ class GpuTrainer:
         elastic_enabled = (s.elastic if s.elastic is not None
                            else bool(_cfg.train_elastic_enabled))
         if elastic_enabled:
+            if self._datasets:
+                raise ValueError(
+                    "elastic training does not support datasets= yet: "
+                    "streaming splits are fixed-world (pass batches "
+                    "through the loop config, or disable elastic)")
             from ray_tpu_torch.train import elastic as elastic_mod
             return elastic_mod.run_elastic_attempt(
                 self, trial_dir, manager, restore, attempt, history,
                 actor_opts=actor_opts, report_ns=report_ns)
 
+        # One streaming execution per named dataset, n per-rank feeds.
+        # equal=True: SPMD training needs every rank to see the same
+        # number of batches, or the stragglers hang in collectives —
+        # work-stealing (equal=False) is for throughput consumers.
+        shard_lists = {name: ds.streaming_split(s.num_workers,
+                                                equal=True)
+                       for name, ds in self._datasets.items()}
+        coordinators = [its[0]._coord
+                        for its in shard_lists.values() if its]
         workers = []
         for rank in range(s.num_workers):
             cls = (_TrainWorker.options(**actor_opts) if actor_opts
                    else _TrainWorker)
+            shards = {name: its[rank]
+                      for name, its in shard_lists.items()}
             workers.append(cls.remote(rank, s.num_workers, trial_dir,
                                       self._config or {}, restore,
-                                      report_ns))
+                                      report_ns, shards))
 
         run_refs = [w.run.remote((self._fn, self._config))
                     for w in workers]
@@ -337,7 +354,10 @@ class GpuTrainer:
             self._drain(report_ns, manager, history)
             raise
         finally:
-            for a in workers:
+            # Coordinators too: each fit attempt spawns one per
+            # dataset, and leaked ones pin their streaming execution's
+            # block refs for the life of the cluster.
+            for a in workers + coordinators:
                 try:
                     ray_tpu_torch.kill(a)
                 except Exception:

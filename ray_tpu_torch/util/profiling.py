@@ -1,6 +1,6 @@
 """Tracing/profiling: runtime timeline + user spans.
 
-Counterpart of `ray_tpu/util/profiling.py`, span half:
+Counterpart of `ray_tpu/util/profiling.py`.  Span half:
 * `timeline(filename)` (python/ray/_private/state.py chrome-trace
   export of profile events),
 * `span()` / `@profiled` / `record_span()`, recorded into the same
@@ -8,8 +8,11 @@ Counterpart of `ray_tpu/util/profiling.py`, span half:
   proxy, router, replica and LLM TTFT spans ride these,
 * `export_otlp()` and the stack-dump helpers.
 
-The device half (`tpu_trace`, `annotate`: a device profile and named
-device regions) is not ported yet and raises (ROADMAP Queue A, A7).
+Device half: `gpu_trace(logdir)` (the JAX package's `tpu_trace`) is a
+`torch.profiler` capture over the CPU and, where there is one, the
+card, written as a Chrome trace into `logdir`; `annotate(name)` is a
+`torch.profiler.record_function` range with an NVTX range of the same
+name.  Both import torch only when called.
 """
 
 from __future__ import annotations
@@ -185,20 +188,44 @@ def profiled(fn=None, *, name: Optional[str] = None):
     return deco(fn) if fn is not None else deco
 
 
-def tpu_trace(logdir: str):
-    """Device profile of the enclosed region (the JAX package wraps
-    jax.profiler.trace).  Not ported yet: raises."""
-    raise NotImplementedError(
-        "profiling.tpu_trace: the device profiler is not ported yet "
-        "(ROADMAP Queue A, A7)")
+@contextlib.contextmanager
+def gpu_trace(logdir: str):
+    """Device profile of the enclosed region: `torch.profiler.profile`
+    over the CPU and CUDA (when a card is present), written on exit as
+    a Chrome trace `<host>.<pid>.<ms>.pt.trace.json` in `logdir` (view
+    in Perfetto or chrome://tracing).  It captures kernel times and the
+    host's launch timeline — the device-side complement to the runtime
+    timeline.  Yields the profiler (`key_averages()` and the rest)."""
+    import socket
+
+    import torch
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"{socket.gethostname()}.{os.getpid()}."
+                f"{int(time.time() * 1000)}.pt.trace.json"))
 
 
+@contextlib.contextmanager
 def annotate(name: str):
-    """Named device region (the JAX package returns a
-    jax.profiler.TraceAnnotation).  Not ported yet: raises."""
-    raise NotImplementedError(
-        "profiling.annotate: named device regions are not ported yet "
-        "(ROADMAP Queue A, A7)")
+    """Named device region: a `torch.profiler.record_function` range
+    (it shows under `name` in a `gpu_trace`) and an NVTX range of the
+    same name when a card is present.  A context manager and a
+    decorator."""
+    import torch
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
 
 
 def export_otlp(filename: Optional[str] = None,

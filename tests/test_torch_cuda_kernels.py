@@ -296,3 +296,33 @@ def test_checkpoint_roundtrip_of_cuda_state(tmp_path):
         assert got is template["params"][key]
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_device_batches_stage_through_pinned_buffers_on_a_side_stream():
+    """data._device (Dataset.iter_device_batches) on the card: int64 and
+    f32 columns arrive equal to the host batches while the consumer's
+    stream is kept busy (a batch used before its copy landed, or a pinned
+    buffer refilled too early, would differ), each staged once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from ray_tpu_torch.data import _device
+    rs = np.random.RandomState(0)
+    batches = [{"tokens": rs.randint(0, 1 << 30, (4, 2049)),
+                "w": rs.standard_normal((4, 64)).astype(np.float32)}
+               for _ in range(9)]
+    before = dict(_device.COUNTS)
+    seen = []
+    for got in _device.device_batches(iter(batches), prefetch=2):
+        torch.cuda._sleep(2_000_000)           # the consumer is busy
+        seen.append({k: (v.device.type, v.dtype, v.cpu().numpy())
+                     for k, v in got.items()})
+    assert _device.COUNTS["pinned_batches"] == \
+        before["pinned_batches"] + len(batches)
+    assert len(seen) == len(batches)
+    for got, want in zip(seen, batches):
+        for k, v in want.items():
+            dev, dtype, arr = got[k]
+            assert dev == "cuda" and str(dtype) == f"torch.{v.dtype}"
+            np.testing.assert_array_equal(arr, v)

@@ -1,12 +1,14 @@
 """Package contract of the port (ray_tpu_torch/): it imports neither JAX
-nor the JAX package, every module imports with both blocked, and entry
-points called without a device need CUDA instead of falling back to the
-CPU."""
+nor the JAX package, every module imports with both blocked and without
+the optional pyarrow, pandas and PIL (only the calls that need one fail,
+naming it), and entry points called without a device need CUDA instead
+of falling back to the CPU."""
 
 import ast
 import os
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -15,6 +17,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "ray_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+# Optional packages that the port imports only where a call needs them
+# (Data's parquet/CSV/JSON readers, pandas conversion, read_images).
+OPTIONAL = ("pyarrow", "pandas", "PIL")
 
 
 def _port_files():
@@ -74,10 +79,32 @@ def test_every_port_module_imports_with_jax_blocked():
         f"ray_tpu_torch.train.{m}" for m in (
             "trainer", "session", "checkpoint", "elastic", "telemetry",
             "train_step")} <= set(mods)
+    assert {"ray_tpu_torch.data", "ray_tpu_torch.util.collective",
+            "ray_tpu_torch.util.hwprobe", "ray_tpu_torch.util.profiling"} | {
+        f"ray_tpu_torch.data.{m}" for m in (
+            "dataset", "_executor", "_device", "block", "context", "_stats",
+            "filesystem", "tfrecords")} <= set(mods)
+    # Only the calls that need an optional package fail, naming it.
+    optional_calls = textwrap.dedent("""
+        from ray_tpu_torch import data
+        for call, pkg in ((lambda: data.read_parquet("x"), "pyarrow"),
+                          (lambda: data.read_csv("x"), "pyarrow"),
+                          (lambda: data.read_json("x"), "pyarrow"),
+                          (lambda: data.read_images("x"), "PIL"),
+                          (lambda: data.Dataset([]).to_pandas(), "pandas")):
+            try:
+                call()
+            except ImportError as e:
+                assert repr(pkg) in str(e), e
+            else:
+                raise AssertionError(f"no ImportError naming {pkg}")
+        """)
     code = ("import sys\n"
-            + "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+            + "".join(f"sys.modules[{m!r}] = None\n"
+                      for m in FORBIDDEN + OPTIONAL)
             + "import importlib\n"
             + f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            + optional_calls
             + "print('imported', len(" + repr(mods) + "))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -234,3 +261,16 @@ def test_rllib_learners_on_cuda_match_cpu():
         torch.backends.cuda.matmul.allow_tf32 = prev
     for a, b in zip(out["cuda"], out["cpu"]):      # by relative norm
         assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
+def test_is_dtensor_tolerates_a_half_imported_dtensor_module(monkeypatch):
+    """While one thread imports torch.distributed.tensor, the module sits
+    in sys.modules without its DTensor class; `is_dtensor` (which
+    CompiledTrainStep.shard_batch calls on each batch) must answer
+    False then, not raise."""
+    import types
+    from ray_tpu_torch.parallel.sharding import is_dtensor
+    monkeypatch.setitem(sys.modules, "torch.distributed.tensor",
+                        types.ModuleType("torch.distributed.tensor"))
+    assert not is_dtensor(torch.zeros(2))
+    assert not is_dtensor(np.zeros(2))

@@ -377,12 +377,10 @@ def test_paths_that_wait_raise_and_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A8b"):
         ma.build()
     for cfg in (CQLConfig(), MARWILConfig()):
-        cfg.offline_data(input_path="logged_transitions")
-        with pytest.raises(NotImplementedError, match="A7"):
-            cfg.build(device="cpu")
-        cfg.input_path = None
         with pytest.raises(ValueError, match="input_path or data"):
             cfg.build(device="cpu")
+    with pytest.raises(ValueError, match="input_path is required"):
+        offline.BCConfig().build(device="cpu")
 
 
 def test_marwil_replay_file_is_the_jax_tests_seed_0(jax_side):

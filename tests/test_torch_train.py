@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
+import ray_tpu_torch.data
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import transformer as tt
 from ray_tpu_torch.train import (Checkpoint, CheckpointManager,
@@ -377,19 +378,39 @@ def test_telemetry_reducers_match_jax(name):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and GPU requests without a GPU
+# datasets, and GPU requests without a GPU
 # ---------------------------------------------------------------------------
-def test_datasets_and_dataset_shard_raise_naming_a7(rt, tmp_path):
-    from ray_tpu_torch.train import session
-    trainer = GpuTrainer(
-        lambda config=None: None,
-        scaling_config=ScalingConfig(num_workers=1, use_gpu=False),
-        run_config=RunConfig(name="ds", storage_path=str(tmp_path)),
-        datasets={"train": object()})
-    with pytest.raises(NotImplementedError, match="A7"):
-        trainer.fit()
-    with pytest.raises(NotImplementedError, match="A7"):
-        session.get_dataset_shard("train")
+def test_datasets_shard_across_workers_and_unknown_shards_raise(rt,
+                                                                tmp_path):
+    """GpuTrainer(datasets=...) gives each rank its streaming split
+    (equal=True: blocks round-robin); an unknown name raises KeyError."""
+    def loop(config):
+        import json
+        import os
+        from ray_tpu_torch.train import session
+        ctx = session.get_context()
+        ids = [int(i) for b in session.get_dataset_shard("train")
+               .iter_batches(batch_size=2) for i in b["id"]]
+        try:
+            session.get_dataset_shard("eval")
+            missing = None
+        except KeyError as e:
+            missing = str(e)
+        with open(os.path.join(ctx.get_trial_dir(),
+                               f"rank{ctx.get_world_rank()}.json"), "w") as f:
+            json.dump({"ids": ids, "missing": missing}, f)
+
+    result = GpuTrainer(
+        loop, train_loop_config={},
+        datasets={"train": ray_tpu_torch.data.range(10, block_rows=2)},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+        run_config=RunConfig(name="ds", storage_path=str(tmp_path))).fit()
+    assert result.error is None, result.error
+    got = [json.load(open(tmp_path / "ds" / f"rank{r}.json"))
+           for r in range(2)]
+    assert [g["ids"] for g in got] == [[0, 1, 4, 5, 8, 9], [2, 3, 6, 7]]
+    assert {g["missing"] for g in got} == {
+        "\"no dataset shard named 'eval'; trainer datasets: ['train']\""}
 
 
 def test_use_gpu_without_a_gpu_fails_and_does_not_run_on_cpu(rt, tmp_path):
