@@ -195,6 +195,33 @@ script exits non-zero without a result line:
                the share of the CUDA tensor's two host copies.  Prints
                step ms p50, tokens/s and data-wait ms for runs A-C.
 
+ 23. rllib_online — PPO, DQN, SAC, IMPALA, APPO and multi-agent PPO
+               through the port's runtime: 2 CPU rollout workers each
+               (num_cpus=1, no GPU), the learner on the card.  PPO at
+               the JAX test's setting (2 workers x 4 envs x 128 steps, lr
+               1e-3, 4 epochs x 4 minibatches) for 15 iterations must
+               pass its learning criterion (max reward > max(first, 15) x
+               1.6); one more PPO update on the card must match the same
+               update on the CPU (same rollout, parameters, Adam state
+               and permutations, TF32 off) within RL_ONE_STEP_TOL; DQN
+               and SAC 3 iterations, IMPALA 12 updates and APPO 6 through
+               train_async (updates and env steps as the JAX test counts
+               them), multi-agent PPO 2 iterations, every metric finite;
+               env steps/s, sampling and learning s an iteration,
+               updates/s; nvidia-smi's context count must not grow while
+               the workers live.
+ 24. serve_compiled — serve_runtime's cell with serve_compiled_pipeline:
+               from a driver that never creates a CUDA context, llama-1b
+               (bf16, seed 0, ENGINE) in a replica on half the card (the
+               f32 model below starts beside it on the other half) answers the
+               serve traffic (16 requests and a re-send, fresh prompts for
+               each path) down the task path, then through the compiled
+               pipe, where the router must count every request as piped;
+               tokens/s, TTFT p50/p95 (the engine's, and from the call)
+               and B4's launches for each path; then the e2e phase's f32
+               model (2 layers, seed 1) gives the same greedy tokens
+               through the pipe as down the task path.
+
 Before phase 1, util.hwprobe.probe() checks the card in a subprocess
 (printed beside the script's own CUDA check, which it does not
 replace).
@@ -202,7 +229,8 @@ replace).
 Then one JSON line `{"kernels": [...]}` (per kernel: launches on its
 main paths — serve, serve_lora, serve_8b (int8, bf16), runtime and
 serve_runtime for
-B4, train, train_moe, train_mesh, ring, pipeline, train_runtime,
+B4 (with serve_compiled), train, train_moe, train_mesh, ring,
+pipeline, train_runtime,
 train_data and train_data_runtime for B1-B3, each
 counted from 0 just before its path and read just after — max error, B4
 also at llama-8b's shape, times two ways (see `time_ms`), the host's
@@ -4237,6 +4265,373 @@ def phase_train_data(torch, fa):
     return out, b_launches, c_launches
 
 
+# ---------------------------------------------------------------------------
+# 23. rllib_online: the online algorithms, CPU workers and the card's
+# learner
+# ---------------------------------------------------------------------------
+RL_ONLINE_PPO_ITERS = 15
+RL_ONLINE_ITERS = {"dqn": 3, "sac": 3, "multi_agent_ppo": 2}
+RL_ONLINE_UPDATES = {"impala": 12, "appo": 6}
+RL_ONLINE_ROLLOUT = 64         # IMPALA's and APPO's T, as the JAX test
+RL_ONLINE_ENVS = 4
+
+
+def rl_online_configs():
+    """The JAX tests' settings (tests/test_rllib.py), each algorithm with
+    2 CPU rollout workers; SAC's learning_starts cut to one iteration's
+    256 transitions so its 3 iterations learn."""
+    from ray_tpu_torch import rllib
+    return {
+        "ppo": rllib.PPOConfig().rollouts(
+            num_rollout_workers=2, num_envs_per_worker=4,
+            rollout_len=128).training(lr=1e-3, num_epochs=4,
+                                      num_minibatches=4),
+        "dqn": rllib.DQNConfig().rollouts(
+            num_rollout_workers=2, num_envs_per_worker=4,
+            rollout_len=64).training(
+            lr=2e-3, num_grad_steps=96, batch_size=64,
+            learning_starts=512, epsilon_decay_iters=5,
+            target_update_interval=2),
+        "sac": rllib.SACConfig().training(learning_starts=256),
+        "impala": rllib.IMPALAConfig().rollouts(
+            num_rollout_workers=2, num_envs_per_worker=RL_ONLINE_ENVS,
+            rollout_len=RL_ONLINE_ROLLOUT).training(
+            lr=1e-3, ent_coef=0.01, broadcast_every=1),
+        "appo": rllib.APPOConfig().rollouts(
+            num_rollout_workers=2, num_envs_per_worker=RL_ONLINE_ENVS,
+            rollout_len=RL_ONLINE_ROLLOUT).training(
+            lr=1e-3, ent_coef=0.01, broadcast_every=1, clip_param=0.3,
+            target_update_freq=4),
+        "multi_agent_ppo": rllib.MultiAgentPPOConfig().multi_agent(
+            policies={"a": {"obs_size": 4, "num_actions": 2},
+                      "b": {"obs_size": 4, "num_actions": 2}},
+            policy_mapping={"agent_0": "a", "agent_1": "b"}),
+    }
+
+
+def finite_metrics(name, result):
+    """Every number of a result dict (nested per policy) is finite."""
+    def nums(d):
+        for v in d.values():
+            if isinstance(v, dict):
+                yield from nums(v)
+            elif isinstance(v, (int, float)):
+                yield v
+    if not all(math.isfinite(v) for v in nums(result)):
+        raise AssertionError(f"{name}: a metric is not finite: {result}")
+
+
+def ppo_card_against_cpu(torch, algo):
+    """One more PPO iteration's rollout from the workers, then the same
+    update (parameters, Adam state, permutations) on the card, as
+    `learn` runs it, and on the CPU; TF32 off.  Returns each leaf's
+    relative error of the change and each metric's relative error."""
+    from ray_tpu_torch.rllib import optim, ppo
+    c = algo.config
+    samples = algo.sample()
+    rollout = {k: np.concatenate([s[k] for s in samples], axis=1)
+               for k in ppo.ROLLOUT_KEYS}
+    to_cpu = lambda t: optim.tree_map(  # noqa: E731
+        lambda x: x.detach().cpu().clone(), t)
+    before = to_cpu(algo.params)
+    cpu_state = optim.AdamState(algo.opt_state.count,
+                                to_cpu(algo.opt_state.mu),
+                                to_cpu(algo.opt_state.nu))
+    update = ppo.make_update_fn(
+        optim.Adam(c.lr), c.clip, c.vf_coef, c.ent_coef, c.gamma, c.lam,
+        c.num_minibatches, c.num_epochs, device="cpu")
+    draws = update.draw(optim.make_generator(7, "cpu"), rollout)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_params, _, cpu_m = update(to_cpu(before), cpu_state, rollout,
+                                      draws=draws)
+        card_m = algo.learn(rollout, draws)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    changes = rl_compare(torch, {"params": before},
+                         {"params": algo.params}, {"params": cpu_params})
+    metrics = {k: abs(card_m[k] - float(v)) / max(abs(float(v)), 1e-12)
+               for k, v in cpu_m.items()}
+    return changes, metrics
+
+
+def rl_online_run(name, algo, result_fn, n):
+    """n train() (or train_async) calls; per call its seconds, and the
+    sampling and learning seconds where the algorithm reports them."""
+    rows = []
+    for i in range(n):
+        t = time.time()
+        r = result_fn(algo, i)
+        r["wall_s"] = time.time() - t
+        finite_metrics(name, r)
+        rows.append(r)
+    return rows
+
+
+def rl_online_summary(rows, steps_key):
+    wall = sum(r["wall_s"] for r in rows)
+    steps = sum(r[steps_key] for r in rows)
+    out = {"iterations": len(rows), "wall_s": wall,
+           "env_steps": steps, "env_steps_per_s": steps / wall}
+    for key in ("sample_time_s", "learn_time_s"):
+        if key in rows[0]:
+            out[key.replace("_time_s", "_s_per_iter")] = statistics.mean(
+                r[key] for r in rows)
+    return out
+
+
+def phase_rllib_online(torch):
+    """PPO, DQN, SAC, IMPALA, APPO and multi-agent PPO through the port's
+    runtime: 2 CPU rollout workers each, the learner on the card.  PPO
+    trains RL_ONLINE_PPO_ITERS iterations at the JAX test's setting and
+    must pass its learning criterion; one more PPO update on the card
+    must match the CPU's within RL_ONE_STEP_TOL; the other algorithms'
+    metrics must be finite and IMPALA's and APPO's counts the JAX
+    test's; the workers must create no CUDA context."""
+    import ray_tpu_torch as rt
+    t_phase = time.time()
+    torch.zeros(1, device="cuda")      # the learner's own context first
+    contexts_before = cuda_context_count()
+    cfgs = rl_online_configs()
+    # One CPU a worker: every algorithm's workers start (and import
+    # torch) together, while the first algorithms train.
+    rt.init(num_cpus=2 * len(cfgs))
+    contexts, out, algos = [], {}, {}
+    try:
+        for name, cfg in cfgs.items():
+            t = time.time()
+            algos[name] = cfg.build()
+            out[name] = {"build_s": time.time() - t}
+
+        algo = algos["ppo"]
+        rows = rl_online_run("ppo", algo, lambda a, i: a.train(),
+                             RL_ONLINE_PPO_ITERS)
+        contexts.append(cuda_context_count())
+        rewards = [r["episode_reward_mean"] for r in rows]
+        if rows[0]["timesteps_this_iter"] != 128 * 8:
+            raise AssertionError(f"ppo: {rows[0]['timesteps_this_iter']} "
+                                 f"steps an iteration, want {128 * 8}")
+        if not max(rewards) > max(rewards[0], 15.0) * 1.6:
+            raise AssertionError(f"ppo did not learn: {rewards}")
+        changes, metric_err = ppo_card_against_cpu(torch, algo)
+        worst = max(changes.values())
+        out["ppo"].update(
+            rl_online_summary(rows, "timesteps_this_iter"),
+            rewards=rewards, learned=True,
+            card_vs_cpu={"change_rel_err_max": worst,
+                         "metric_rel_err_max": max(metric_err.values()),
+                         "limits": RL_ONE_STEP_TOL,
+                         "change_rel_err": changes})
+        if worst > RL_ONE_STEP_TOL["change"] or \
+                max(metric_err.values()) > RL_ONE_STEP_TOL["metric"]:
+            raise AssertionError(f"ppo: the card's update differs from the "
+                                 f"CPU's: {out['ppo']['card_vs_cpu']}")
+        algo.stop()
+        for name, n in RL_ONLINE_ITERS.items():
+            algo = algos[name]
+            rows = rl_online_run(name, algo, lambda a, i: a.train(), n)
+            contexts.append(cuda_context_count())
+            out[name].update(rl_online_summary(rows,
+                                               "timesteps_this_iter"),
+                             last=rows[-1])
+            algo.stop()
+        for name, n in RL_ONLINE_UPDATES.items():
+            algo = algos[name]
+            rows = rl_online_run(name, algo,
+                                 lambda a, i: a.train_async(num_updates=n),
+                                 1)
+            contexts.append(cuda_context_count())
+            r = rows[0]
+            want = n * RL_ONLINE_ROLLOUT * RL_ONLINE_ENVS
+            if r["num_updates"] != n or r["env_steps"] != want:
+                raise AssertionError(f"{name}: {r['num_updates']} updates, "
+                                     f"{r['env_steps']} env steps; want "
+                                     f"{n} and {want}")
+            out[name].update(num_updates=r["num_updates"],
+                             env_steps=r["env_steps"],
+                             updates_per_s=r["updates_per_s"],
+                             learner_steps_per_s=r["learner_steps_per_s"],
+                             learn_s_per_update=r["learn_time_s"] / n,
+                             last=r)
+            algo.stop()
+    finally:
+        for algo in algos.values():
+            algo.stop()
+        rt.shutdown()
+    worker_contexts = max(contexts) - contexts_before
+    if worker_contexts != 0:
+        raise AssertionError(f"rollout workers made {worker_contexts} "
+                             f"CUDA contexts (before {contexts_before}, "
+                             f"during {contexts})")
+    return {"phase": "rllib_online", "card": card_name_and_limit(),
+            "workers_per_algorithm": 2, "learner_device": "cuda",
+            "worker_cuda_contexts": worker_contexts,
+            "contexts_before": contexts_before,
+            "contexts_during": contexts, **out,
+            "phase_s": time.time() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# 24. serve_compiled: serve_runtime's cell through the compiled pipe
+# ---------------------------------------------------------------------------
+COMPILED_SEEDS = {"task": 10, "pipe": 11}   # fresh prompts for each path
+
+
+def compiled_llm():
+    """`counting_llm()` plus `generate_at`: generate, with the driver's
+    send time, so TTFT from the call is read on one clock whichever
+    path the request took (the pipe carries no trace context)."""
+    base = counting_llm()
+
+    class CompiledLLM(base):
+        async def generate_at(self, prompt, max_new, sent):
+            arrived = time.time()
+            out = await self.generate(prompt, max_new)
+            out["call_ttft_s"] = arrived - sent + out["ttft_s"]
+            return out
+
+    return CompiledLLM
+
+
+def compiled_traffic(rt, h, config, kw, path, max_new=64):
+    """`serve_prompts` of COMPILED_SEEDS[path] and a re-send of #5
+    through the handle, with `serve_compiled_pipeline` on for "pipe" and
+    off for "task"; B4's launches counted in the replica from 0 just
+    before and read just after, and the router's pipe and task counts
+    over the run."""
+    vocab, n_layers = kw["vocab_size"], kw["n_layers"]
+    prompts = serve_prompts(vocab, seed=COMPILED_SEEDS[path])
+    router = h._get_router()
+    steps0 = rt.get(h.reset_launches.remote(), timeout=60)
+    counts0 = router.pipe_stats()
+    config.set("serve_compiled_pipeline", path == "pipe")
+    t_run = time.time()
+    refs = [h.generate_at.remote(p, max_new, time.time()) for p in prompts]
+    outs = rt.get(refs, timeout=RUNTIME_TIMEOUT)
+    run_s = time.time() - t_run
+    again = rt.get(h.generate_at.remote(prompts[5], max_new, time.time()),
+                   timeout=RUNTIME_TIMEOUT)
+    config.set("serve_compiled_pipeline", False)
+    launches, steps = rt.get(h.launches.remote(), timeout=60)
+    counts = {k: v - counts0[k] for k, v in router.pipe_stats().items()}
+    steps -= steps0
+    for o in outs + [again]:
+        check_request(types.SimpleNamespace(error=None, **o), vocab,
+                      max_new)
+    if not (again["cache_hit"] and again["cached_tokens"] == 32):
+        raise AssertionError(f"{path} re-send: cache_hit="
+                             f"{again['cache_hit']} cached_tokens="
+                             f"{again['cached_tokens']}")
+    if launches < steps * n_layers or launches == 0:
+        raise AssertionError(f"{launches} kernel launches for {steps} "
+                             f"decode steps x {n_layers} layers")
+    ttft = [o["ttft_s"] * 1e3 for o in outs]
+    call = [o["call_ttft_s"] * 1e3 for o in outs]
+    return {"requests": len(outs) + 1, "router_counts": counts,
+            "decode_tokens_per_s": len(outs) * max_new / run_s,
+            "wall_s": run_s, "ttft_p50_ms": pct(ttft, 0.5),
+            "ttft_p95_ms": pct(ttft, 0.95),
+            "call_ttft_p50_ms": pct(call, 0.5),
+            "call_ttft_p95_ms": pct(call, 0.95),
+            "resend_cached_tokens": again["cached_tokens"],
+            "decode_steps": steps, "kernel_launches": launches}
+
+
+def compiled_tokens(rt, h, config, prompts, path):
+    config.set("serve_compiled_pipeline", path == "pipe")
+    try:
+        got = rt.get([h.generate.remote(p, E2E_NEW) for p in prompts],
+                     timeout=RUNTIME_TIMEOUT)
+    finally:
+        config.set("serve_compiled_pipeline", False)
+    return [[int(t) for t in g["tokens"]] for g in got]
+
+
+def serve_compiled_driver() -> int:
+    """The serve_compiled phase's driver, in a process of its own that
+    never touches CUDA: serve.run puts llama-1b (bf16, seed 0, ENGINE) in
+    one replica and the e2e phase's f32 model (2 layers, seed 1) in
+    another, half the card each (`num_gpus=0.5`: they start together);
+    serve_runtime's traffic goes to llama-1b through the handle down the
+    task path, then through the compiled pipe; then the f32 model answers
+    the e2e prompts down both paths.  Prints one JSON line; any failed
+    check raises."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.config import config
+    kw = preset_kwargs(torch, dtype=torch.bfloat16)
+    f32 = preset_kwargs(torch, n_layers=2, dtype=torch.float32)
+    llm = compiled_llm()
+    out = {}
+    rt.init(num_cpus=4)
+    store = rt._session.node_service.store_path
+    pids = session_workers(rt)
+    try:
+        t1 = time.time()
+        h = serve.run(serve.deployment(
+            llm, name=SERVE_NAME, num_replicas=1, max_concurrent_queries=32,
+            ray_actor_options={"num_gpus": 0.5},
+        ).bind(dtypes_by_name(torch, kw), seed=0, **ENGINE))
+        h2 = serve.run(serve.deployment(
+            llm, name=SERVE_E2E_NAME, max_concurrent_queries=32,
+            ray_actor_options={"num_gpus": 0.5},
+        ).bind(dtypes_by_name(torch, f32), seed=1, **ENGINE))
+        wheres = rt.get([h.ready.remote(), h2.ready.remote()],
+                        timeout=RUNTIME_TIMEOUT)
+        out["replicas_setup_s"] = time.time() - t1
+        pids |= session_workers(rt)
+        if not all(w["device"].startswith("cuda") for w in wheres):
+            raise AssertionError(f"a replica is not on the card: {wheres}")
+        for path in ("task", "pipe"):
+            t = time.time()
+            out[path] = compiled_traffic(rt, h, config, kw, path)
+            out[path]["path_s"] = time.time() - t
+        if out["pipe"]["router_counts"] != {
+                "pipe": out["pipe"]["requests"], "task": 0}:
+            raise AssertionError(f"not every request rode the pipe: "
+                                 f"{out['pipe']['router_counts']}")
+        if out["task"]["router_counts"] != {"pipe": 0, "task": 0}:
+            raise AssertionError(f"the switch was off, yet the router "
+                                 f"counted {out['task']['router_counts']}")
+        prompts = e2e_prompts(f32["vocab_size"])
+        c0 = h2._get_router().pipe_stats()
+        task = compiled_tokens(rt, h2, config, prompts, "task")
+        pipe = compiled_tokens(rt, h2, config, prompts, "pipe")
+        c1 = h2._get_router().pipe_stats()
+        mismatch = [i for i, (a, b) in enumerate(zip(task, pipe)) if a != b]
+        if mismatch or c1["pipe"] - c0["pipe"] != len(prompts):
+            raise AssertionError(f"f32: pipe and task tokens differ on "
+                                 f"{mismatch}, or {c1['pipe'] - c0['pipe']}"
+                                 f" of {len(prompts)} rode the pipe")
+        out["f32"] = {"layers": 2, "requests": len(prompts),
+                      "tokens_compared": sum(map(len, task)),
+                      "tokens_equal": True,
+                      "pipe_requests": c1["pipe"] - c0["pipe"]}
+    finally:
+        pids |= session_workers(rt)
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    return after_shutdown(torch, out, pids, store)
+
+
+def phase_serve_compiled(torch):
+    """Run `serve_compiled_driver` in a process of its own.  Returns
+    (record, B4 launches in the replica through the pipe)."""
+    drv, driver_s = run_driver("serve_compiled_driver")
+    task, pipe = drv["task"], drv["pipe"]
+    out = {"phase": "serve_compiled", "model": "llama-1b",
+           "dtype": "bfloat16", "card": card_name_and_limit(),
+           "driver_s": driver_s, **drv,
+           "pipe_over_task": {k: pipe[k] / task[k] for k in (
+               "decode_tokens_per_s", "ttft_p50_ms", "ttft_p95_ms",
+               "call_ttft_p50_ms", "call_ttft_p95_ms")}}
+    return out, pipe["kernel_launches"]
+
+
 def card_name_and_limit() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -4375,6 +4770,17 @@ def main() -> int:
     # train_mesh's step on the same batches; the collective
     data, data_launches, data_rt_launches = phase_train_data(torch, fa)
     emit(data)
+    # 23. the online RLlib algorithms: CPU rollout workers on the port's
+    # runtime, the learners on the card (no kernel of B1-B4)
+    t = time.time()
+    emit(phase_rllib_online(torch))
+    emit({"phase": "rllib_online_seconds", "seconds": time.time() - t})
+    torch.cuda.empty_cache()
+    # 24. serve_runtime's cell through the compiled serve pipeline
+    t = time.time()
+    compiled, compiled_launches = phase_serve_compiled(torch)
+    emit(compiled)
+    emit({"phase": "serve_compiled_seconds", "seconds": time.time() - t})
 
     kernels = [{
         "name": "paged_attention",
@@ -4382,13 +4788,14 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:195",
         "launches": launches + lora_launches + sum(serve_8b.values())
-        + runtime_launches + served_launches,
+        + runtime_launches + served_launches + compiled_launches,
         "launches_by_path": {"serve": launches,
                              "serve_lora": lora_launches,
                              "serve_8b_int8": serve_8b["int8"],
                              "serve_8b_bf16": serve_8b["bf16"],
                              "runtime": runtime_launches,
-                             "serve_runtime": served_launches},
+                             "serve_runtime": served_launches,
+                             "serve_compiled": compiled_launches},
         "max_abs_err": timing["max_abs_err"],
         **{k: timing[k] for k in KERNEL_TIME_KEYS},
         "at_llama_8b": {k: timing_8b[k] for k in

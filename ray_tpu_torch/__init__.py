@@ -173,6 +173,16 @@ def shutdown() -> None:
     with _session_lock:
         if _session is None:
             return
+        # Compiled graphs hold mmap channel files in /dev/shm-backed
+        # session space: sweep any the user never tore down (and their
+        # actor loop tasks) while the client can still reach the node.
+        import sys as _sys
+        _dag_mod = _sys.modules.get("ray_tpu_torch.dag")
+        if _dag_mod is not None:
+            try:
+                _dag_mod._teardown_all()
+            except Exception:
+                pass
         sess, _session = _session, None
         if sess.prev_config_overrides is not None:
             with config._lock:

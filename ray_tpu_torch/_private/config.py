@@ -279,8 +279,7 @@ _D("serve_compiled_pipeline", bool, False,
    "Serve fast lane: route unary deployment requests through a "
    "per-replica compiled graph (router handoff writes into the "
    "graph's input channel) instead of a scheduled actor task per "
-   "call.  Streaming requests always use the task path.  Not ported "
-   "yet: serve.run raises while it is on (ROADMAP Queue A, A2c).")
+   "call.  Streaming requests always use the task path.")
 
 # ---------------------------------------------------------------------------
 # TPU / mesh execution layer

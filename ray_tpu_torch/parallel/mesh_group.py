@@ -32,12 +32,15 @@ import socket
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch import exceptions
 from ray_tpu_torch.util.placement_group import (PlacementGroup,
                                                 placement_group,
                                                 remove_placement_group)
 
 # Seconds a rank waits in init_process_group for the others.
 RENDEZVOUS_TIMEOUT_S = 300.0
+# Seconds before run()'s timeout at which each rank dumps its stacks.
+STACK_DUMP_LEAD_S = 5.0
 
 
 class _MeshHostWorker:
@@ -96,6 +99,20 @@ class _MeshHostWorker:
         fn sees the gang's default process group."""
         return fn(self.rank, *args, **kwargs)
 
+    def run_watched(self, dump_after_s: float, dump_path: str,
+                    fn: Callable, *args, **kwargs) -> Any:
+        """run(), with every thread's stack written to `dump_path` if
+        fn has not returned after `dump_after_s`: a rank stuck in a
+        collective shows where it waits."""
+        import faulthandler
+        with open(dump_path, "w") as f:
+            faulthandler.dump_traceback_later(dump_after_s, exit=False,
+                                              file=f)
+            try:
+                return fn(self.rank, *args, **kwargs)
+            finally:
+                faulthandler.cancel_dump_traceback_later()
+
     def ping(self) -> int:
         return self.rank
 
@@ -108,6 +125,47 @@ def _local_ip() -> str:
         return get_global_client().node_info().get("host") or "127.0.0.1"
     except Exception:
         return "127.0.0.1"
+
+
+def _finished_ranks(refs: list) -> str:
+    """What the ranks that did finish returned or raised: a rank that
+    failed leaves the others waiting for it in a collective."""
+    done, _ = ray_tpu_torch.wait(refs, num_returns=len(refs), timeout=0)
+    done_ids = {r.binary() for r in done}
+    lines = []
+    for rank, ref in enumerate(refs):
+        if ref.binary() not in done_ids:
+            continue
+        try:
+            ray_tpu_torch.get(ref, timeout=1)
+            lines.append(f"rank {rank} returned")
+        except Exception as e:  # noqa: BLE001
+            lines.append(f"rank {rank} raised {type(e).__name__}: "
+                         f"{str(e)[-500:]}")
+    return "".join(line + "\n" for line in lines)
+
+
+def _read_stacks(paths: List[str]) -> str:
+    """The ranks' stack dumps, each under its rank, as far as this host
+    can read them."""
+    import os
+    parts = []
+    for rank, path in enumerate(paths):
+        text = ""
+        if os.path.exists(path):
+            with open(path) as f:
+                text = f.read().strip()
+        parts.append(f"--- rank {rank} stacks ---\n"
+                     + (text or f"(none at {path})"))
+    return "\n".join(parts)
+
+
+def _unlink(path: str) -> None:
+    try:
+        import os
+        os.unlink(path)
+    except OSError:
+        pass
 
 
 def _free_port(host: str = "127.0.0.1") -> int:
@@ -323,9 +381,41 @@ class MeshGroup:
             **kwargs) -> List[Any]:
         """Run fn(rank, *args, **kwargs) on EVERY rank concurrently
         (SPMD: all ranks must issue the same collectives).  Returns
-        per-rank results ordered by rank."""
-        refs = [w.run.remote(fn, *args, **kwargs) for w in self.workers]
-        return ray_tpu_torch.get(refs, timeout=timeout)
+        per-rank results ordered by rank.
+
+        With a timeout, each rank dumps its threads' stacks shortly
+        before it; the timeout error carries them, so a rank that waits
+        forever in a collective names the call it waits in."""
+        if timeout is None:
+            refs = [w.run.remote(fn, *args, **kwargs)
+                    for w in self.workers]
+            return ray_tpu_torch.get(refs)
+        paths = self._dump_paths()
+        dump_after = max(timeout - STACK_DUMP_LEAD_S, timeout / 2)
+        refs = [w.run_watched.remote(dump_after, path, fn, *args,
+                                     **kwargs)
+                for w, path in zip(self.workers, paths)]
+        try:
+            return ray_tpu_torch.get(refs, timeout=timeout)
+        except exceptions.GetTimeoutError as e:
+            raise exceptions.GetTimeoutError(
+                f"{e}\n" + _finished_ranks(refs) + _read_stacks(paths)
+            ) from e
+        finally:
+            for path in paths:
+                _unlink(path)
+
+    def _dump_paths(self) -> List[str]:
+        """One stack-dump file per rank under the session's directory
+        (ranks of a multi-host gang write on their own host)."""
+        import os
+        import uuid
+        from ray_tpu_torch._private.client import get_global_client
+        root = os.path.join(get_global_client().session_dir, "mesh_group")
+        os.makedirs(root, exist_ok=True)
+        tag = uuid.uuid4().hex[:8]
+        return [os.path.join(root, f"{tag}-rank{r}.stacks")
+                for r in range(len(self.workers))]
 
     def shutdown(self) -> None:
         self._kill_gang()

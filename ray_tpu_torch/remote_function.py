@@ -156,11 +156,12 @@ class RemoteFunction:
         return refs
 
     def bind(self, *args, **kwargs):
-        """Build a task-DAG node (reference: dag/function_node.py).  The
-        port has no workflow or DAG module yet: ROADMAP.md item A2c."""
-        raise NotImplementedError(
-            "RemoteFunction.bind: workflows and task DAGs are not ported "
-            "to ray_tpu_torch yet (ROADMAP.md, Queue A, item A2c)")
+        """Build a task-DAG node (reference: dag/function_node.py) —
+        executed durably by ray_tpu_torch.workflow.run.  Defined here (not
+        monkey-patched at workflow import) so continuations returned
+        from inside workers can bind too."""
+        from ray_tpu_torch.workflow import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     def __reduce__(self):
         # Ship the underlying function + options.  The function is handed

@@ -1,13 +1,13 @@
 """APPO's learner: IMPALA's V-trace bootstrapped from a target network,
 with PPO's clipped surrogate.
 
-Port of `ray_tpu/rllib/appo.py`.  The update takes and returns the packed
+Port of `ray_tpu/rllib/appo.py`.  `APPO` is IMPALA's driver (streaming
+workers, `train_async`) with this update in place of V-trace's.  The update takes and returns the packed
 `(opt_state, target_params, step)` that the JAX algorithm keeps where
 IMPALA keeps its optimizer state; build it as `(optimizer.init(params),
 tree_copy(params), 0)`.  The target refreshes in place from the live
 parameters when `step % target_update_freq == 0`, counted after the
-increment, and stays its own storage.  The `APPO` algorithm needs the actor
-runtime (ROADMAP A8b).
+increment, and stays its own storage.
 """
 
 from __future__ import annotations
@@ -18,10 +18,11 @@ from typing import Callable
 import torch
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib.impala import (IMPALAConfig, behaviour_terms,
-                                        entropy_of, vtrace_targets)
-from ray_tpu_torch.rllib.optim import (Adam, as_tensors, tree_leaves,
-                                       value_and_grad)
+from ray_tpu_torch.rllib.impala import (IMPALA, IMPALAConfig,
+                                        behaviour_terms, entropy_of,
+                                        vtrace_targets)
+from ray_tpu_torch.rllib.optim import (Adam, as_tensors, tree_copy,
+                                       tree_leaves, value_and_grad)
 
 
 def make_appo_update(forward: Callable, optimizer: Adam, gamma: float,
@@ -79,3 +80,26 @@ def make_appo_update(forward: Callable, optimizer: Adam, gamma: float,
 class APPOConfig(IMPALAConfig):
     clip_param: float = 0.3
     target_update_freq: int = 4
+
+    def build(self, device: DeviceLike = None) -> "APPO":
+        return APPO(self, device=device)
+
+
+class APPO(IMPALA):
+    """IMPALA driver + PPO surrogate learner (see module docstring).
+
+    The async loop, streaming workers, and broadcast cadence are
+    inherited; only the update (and the state packed next to the
+    optimizer state) differ."""
+
+    def __init__(self, config: APPOConfig, device: DeviceLike = None
+                 ) -> None:
+        super().__init__(config, device=device)
+        self._update = make_appo_update(
+            self._forward, self.optimizer, config.gamma, config.rho_clip,
+            config.c_clip, config.clip_param, config.vf_coef,
+            config.ent_coef, config.target_update_freq,
+            device=self.device)
+        # Pack (opt_state, target_params, step) where the driver keeps
+        # opt_state: train_async stays IMPALA's.
+        self.opt_state = (self.opt_state, tree_copy(self.params), 0)

@@ -5,7 +5,11 @@ Port of `ray_tpu/rllib/checkpoint.py`.  Each algorithm declares
 `_ckpt_attrs`, the attributes that fully determine learner state
 (parameter trees, optimizer state, counters), and a `device`.  save()
 moves every tensor among them to the CPU and writes them as one pickle;
-restore() loads them back onto the algorithm's device.
+restore() loads them back onto the algorithm's device, then calls
+`_restored()`: an algorithm re-derives its views of the state there, and
+the asynchronous ones send the restored weights to their rollout
+workers (the synchronous ones send them with every sample anyway).  The
+workers hold no learned state of their own, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,3 +67,7 @@ class RLCheckpointMixin:
         for name, value in state.items():
             setattr(self, name, map_tensors(lambda t: t.to(self.device),
                                             value))
+        self._restored()
+
+    def _restored(self) -> None:
+        """Called after restore() has set the state."""

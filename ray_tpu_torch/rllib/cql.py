@@ -211,8 +211,7 @@ class CQL(RLCheckpointMixin):
             num_cql_actions=config.num_cql_actions, device=self.device)
         self.iteration = 0
 
-    def restore(self, path: str) -> None:
-        super().restore(path)
+    def _restored(self) -> None:
         # actor/qs are views of _state; re-derive them so compute_action
         # and mean_q work right after a restore.
         self.actor, self.qs = self._state[0], self._state[1]

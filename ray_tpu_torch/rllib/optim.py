@@ -137,6 +137,15 @@ def make_generator(seed: int, device: DeviceLike = None) -> torch.Generator:
     return gen
 
 
+def seeded_params(seed: int, device: torch.device, init: Callable) -> Any:
+    """`init(generator)`'s tree drawn on the CPU from `seed`, then moved
+    to `device`: one seed gives the same initial weights on every
+    device, as a JAX key does (torch's CUDA generator draws other
+    numbers than its CPU one)."""
+    tree = init(make_generator(seed, "cpu"))
+    return tree_map(lambda t: t.to(device), tree)
+
+
 def normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, device=gen.device)
 

@@ -1,5 +1,6 @@
-"""SAC's learner: the squashed-Gaussian actor, twin Q critics and the
-critic / actor / temperature update with Polyak targets.
+"""SAC: the squashed-Gaussian actor, twin Q critics, the critic / actor /
+temperature update with Polyak targets, the stochastic workers and the
+algorithm.
 
 Port of `ray_tpu/rllib/sac.py`.  Each grad step updates the critics, then
 the actor against the updated critics, then alpha with the actor's
@@ -8,21 +9,34 @@ place (they are their own storage, never an alias of the critics).  The
 randomness is drawn first: the minibatch indices [num_grad_steps,
 batch_size] and two standard-normal tensors [num_grad_steps, batch_size,
 A] (the critic target's next actions, the actor's actions), from the
-learner's generator or given as `draws`.  The stochastic workers and the
-`SAC` algorithm need the actor runtime (ROADMAP A8b).
+learner's generator or given as `draws`.
+
+`SACWorker` actors act with the squashed Gaussian on the CPU (its
+normals drawn first), or uniformly over the action box while the buffer
+warms up (`uniform_random`); `SAC.train()` adds their transitions to the
+replay buffer and, past `learning_starts`, runs one update on the
+learner's device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.rllib.optim import (Adam, as_tensors, normal, randint,
-                                       resolve_draws, tree_copy,
+from ray_tpu_torch.rllib import workers as wk
+from ray_tpu_torch.rllib.checkpoint import RLCheckpointMixin
+from ray_tpu_torch.rllib.dqn import ReplayBuffer
+from ray_tpu_torch.rllib.env import PendulumEnv, VectorEnv
+from ray_tpu_torch.rllib.optim import (Adam, as_tensors, make_generator,
+                                       normal, randint, resolve_draws,
+                                       seeded_params, tree_copy,
                                        tree_leaves, value_and_grad)
 from ray_tpu_torch.rllib.ppo import dense
 
@@ -180,3 +194,196 @@ def make_update_fn(actor_opt: Adam, critic_opt: Adam, alpha_opt: Adam,
 
     update.draw = draw
     return update
+
+
+@ray_tpu_torch.remote
+class SACWorker:
+    """Stochastic-policy transition collector (reference: off-policy
+    EnvRunner sampling)."""
+
+    def __init__(self, worker_index: int, num_envs: int,
+                 rollout_len: int, env_maker=None,
+                 max_steps: int = 200,
+                 action_scale: float = 2.0) -> None:
+        torch.set_num_threads(1)
+        maker = env_maker or (
+            lambda seed: PendulumEnv(max_steps=max_steps, seed=seed))
+        self.vec = VectorEnv(maker, num_envs,
+                             seed=9000 * (worker_index + 1))
+        self.rollout_len = rollout_len
+        self.obs = self.vec.reset()
+        self.rng = wk.worker_generator(1234 + worker_index)
+        self._action_scale = action_scale
+
+    @torch.no_grad()
+    def sample(self, actor, uniform_random: bool = False,
+               draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """One rollout.  Warm-up (`uniform_random`) acts uniformly over
+        [-scale, scale]; else the squashed Gaussian.  `draws` gives
+        {"uniform": [T, N, A]} (the actions themselves) or {"noise":
+        [T, N, A]} (standard normals)."""
+        p = wk.cpu_tree(actor)
+        T, N = self.rollout_len, self.vec.num_envs
+        A = self.vec.envs[0].action_size
+        s = self._action_scale
+        if draws is not None:
+            drawn = wk.as_cpu(draws["uniform" if uniform_random
+                                    else "noise"], torch.float32)
+        elif uniform_random:      # warmup: cover the action space
+            drawn = torch.rand((T, N, A), generator=self.rng) * (2 * s) - s
+        else:
+            drawn = torch.randn((T, N, A), generator=self.rng)
+        obs_b, act_b, rew_b, nobs_b, done_b = [], [], [], [], []
+        for t in range(T):
+            if uniform_random:
+                action = drawn[t].numpy()
+            else:
+                action, _ = sample_action(p, wk.obs_tensor(self.obs),
+                                          drawn[t], s)
+                action = action.numpy()
+            prev = self.obs
+            self.obs, rew, done = self.vec.step(action)
+            obs_b.append(prev)
+            act_b.append(action)
+            rew_b.append(rew)
+            nobs_b.append(self.obs)
+            done_b.append(done)
+        return {"obs": np.concatenate(obs_b),
+                "actions": np.concatenate(act_b),
+                "rewards": np.concatenate(rew_b),
+                "next_obs": np.concatenate(nobs_b),
+                "dones": np.concatenate(done_b),
+                "episode_returns": self.vec.drain_episode_returns()}
+
+
+class SACConfig:
+    def __init__(self) -> None:
+        self.num_rollout_workers = 2
+        self.num_envs_per_worker = 4
+        self.rollout_len = 32
+        self.env_maker: Optional[Callable] = None
+        self.env_max_steps = 200
+        self.obs_size = PendulumEnv.observation_size
+        self.action_size = PendulumEnv.action_size
+        self.action_scale = PendulumEnv.action_high
+        self.actor_lr = 3e-4
+        self.critic_lr = 3e-4
+        self.alpha_lr = 3e-4
+        self.gamma = 0.99
+        self.tau = 0.005
+        self.target_entropy: Optional[float] = None   # -action_size
+        self.buffer_capacity = 100_000
+        self.learning_starts = 1_000
+        self.batch_size = 128
+        self.num_grad_steps = 64
+        self.hidden = 128
+        self.seed = 0
+
+    def rollouts(self, **kw) -> "SACConfig":
+        for k, v in kw.items():
+            if k == "max_steps":
+                k = "env_max_steps"
+            if not hasattr(self, k):
+                raise ValueError(f"unknown SAC config option {k!r}")
+            setattr(self, k, v)
+        return self
+
+    training = rollouts
+    environment = rollouts
+
+    def build(self, device: DeviceLike = None) -> "SAC":
+        return SAC(self, device=device)
+
+
+class SAC(RLCheckpointMixin):
+    """`_state` is the update's (actor, qs, target_qs, log_alpha, and the
+    three Adam states); `actor`, `qs`, `target_qs` and `log_alpha` are
+    views of it."""
+
+    _ckpt_attrs = ("_state", "iteration")
+
+    def __init__(self, config: SACConfig, device: DeviceLike = None
+                 ) -> None:
+        c = self.config = config
+        self.device = resolve_device(device)
+        self._rng = make_generator(c.seed, self.device)
+        params = seeded_params(c.seed, self.device, lambda g: init_sac(
+            g, c.obs_size, c.action_size, hidden=c.hidden))
+        opts = (Adam(c.actor_lr), Adam(c.critic_lr), Adam(c.alpha_lr))
+        self._state = init_state(params, *opts)
+        self._views()
+        target_ent = (c.target_entropy if c.target_entropy is not None
+                      else -float(c.action_size))
+        self._update = make_update_fn(
+            *opts, c.gamma, c.tau, target_ent, c.num_grad_steps,
+            c.batch_size, c.action_scale, device=self.device)
+        # Replay stores flat continuous actions: the DQN ring buffer
+        # with an action matrix instead of an int vector.
+        self.buffer = ReplayBuffer(c.buffer_capacity, c.obs_size)
+        self.buffer.actions = np.zeros(
+            (c.buffer_capacity, c.action_size), np.float32)
+        self.workers = wk.spawn(SACWorker, c.num_rollout_workers,
+                                lambda i: (i, c.num_envs_per_worker,
+                                           c.rollout_len, c.env_maker,
+                                           c.env_max_steps,
+                                           c.action_scale))
+        self._np_rng = np.random.RandomState(c.seed)
+        self.iteration = 0
+        self._reward_window: List[float] = []
+
+    def _views(self) -> None:
+        self.actor, self.qs, self.target_qs, self.log_alpha = \
+            self._state[:4]
+
+    _restored = _views
+
+    def train(self, draws: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, Any]:
+        """One iteration; `draws` {"workers": [...], "update": {...}}
+        replaces every random draw but the buffer's numpy one."""
+        c = self.config
+        t0 = time.time()
+        warmup = self.buffer.size < c.learning_starts
+        actor_ref = ray_tpu_torch.put(wk.host_tree(self.actor))
+        samples = wk.gather([
+            w.sample.remote(actor_ref, warmup, wk.worker_draws(draws, i))
+            for i, w in enumerate(self.workers)])
+        t1 = time.time()
+        episode_returns = []
+        for s in samples:
+            self.buffer.add_batch(s["obs"], s["actions"], s["rewards"],
+                                  s["next_obs"], s["dones"])
+            episode_returns.extend(s["episode_returns"])
+        self._reward_window.extend(episode_returns)
+        self._reward_window = self._reward_window[-50:]
+
+        losses = {"critic_loss": float("nan"), "actor_loss": float("nan"),
+                  "entropy": float("nan")}
+        if self.buffer.size >= c.learning_starts:
+            slab = self.buffer.sample(self._np_rng,
+                                      c.batch_size * c.num_grad_steps)
+            self._state, closs, aloss, entropy = self._update(
+                self._state, slab, self._rng,
+                draws=None if draws is None else draws["update"])
+            self._views()
+            losses = wk.floats({"critic_loss": closs, "actor_loss": aloss,
+                                "entropy": entropy})
+        self.iteration += 1
+        t2 = time.time()
+        return {
+            "training_iteration": self.iteration,
+            "episode_reward_mean": wk.reward_mean(self._reward_window),
+            "episodes_this_iter": len(episode_returns),
+            "timesteps_this_iter": sum(len(s["actions"]) for s in samples),
+            "buffer_size": self.buffer.size,
+            "critic_loss": losses["critic_loss"],
+            "actor_loss": losses["actor_loss"],
+            "alpha": float(torch.exp(self.log_alpha)),
+            "entropy": losses["entropy"],
+            "time_this_iter_s": t2 - t0,
+            "sample_time_s": t1 - t0,
+            "learn_time_s": t2 - t1,
+        }
+
+    def stop(self) -> None:
+        wk.kill_all(self.workers)

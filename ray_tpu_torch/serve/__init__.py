@@ -331,13 +331,6 @@ def _validate_opts(dep: Deployment) -> Dict[str, Any]:
 def _deploy_one(controller, name: str, dep: Deployment,
                 init_args, init_kwargs) -> None:
     import ray_tpu_torch
-    from ray_tpu_torch._private.config import config
-    if config.serve_compiled_pipeline:
-        # The JAX router quietly takes the task path when the graph
-        # cannot be built; here the switch fails loudly instead.
-        raise NotImplementedError(
-            "serve_compiled_pipeline: the compiled serve pipeline needs "
-            "task DAGs, which are not ported yet (ROADMAP Queue A, A2c)")
     opts = dep._options
     if opts.get("user_config") is not None \
             and not hasattr(dep._cls, "reconfigure"):

@@ -7,9 +7,9 @@ runs through handle_request, which tracks the in-flight count the
 pow-2 router probes.  A replica deployed with
 `ray_actor_options={"num_gpus": 1}` owns one card: the runtime pins
 CUDA_VISIBLE_DEVICES before the user class is built, so an
-LLMDeployment's engine lands on it.  The compiled-pipeline entry
-points (`pipe_config`, `pipeline_step`) wait for task DAGs (ROADMAP
-Queue A, A2c).
+LLMDeployment's engine lands on it.  With `serve_compiled_pipeline`
+on, the router drives `pipeline_step` through a compiled DAG instead
+(`pipe_config` names the methods that must not ride it).
 """
 
 from __future__ import annotations
@@ -51,10 +51,15 @@ class Replica:
         # real engine TTFT/ITL samples via the __rtpu_slo_stats__
         # hook).  Samples age out after _SLO_WINDOW_S.
         self._lat_window: deque = deque(maxlen=256)
-        # handle_request runs on the actor's event loop while the
-        # probes run on other threads: the counters the router and
-        # controller probe must not lose updates to interleaved `+=`.
+        # handle_request runs on the actor's event loop while
+        # pipeline_step runs on the compiled-graph executor thread:
+        # the counters the router/controller probe must not lose
+        # updates to interleaved `+=`.
         self._count_lock = threading.Lock()
+        # Dedicated event loop for async user methods reached through
+        # the compiled pipeline (pipeline_step runs on the DAG
+        # executor thread, outside the actor's asyncio loop).
+        self._pipe_loop = None
         if user_config is not None:
             self.reconfigure(user_config)
 
@@ -128,6 +133,59 @@ class Replica:
                     # reads toward zero right when it matters.
                     self._lat_window.append(
                         (time.monotonic(), time.monotonic() - t0))
+
+    def pipe_config(self) -> dict:
+        """Router probe at pipe-compile time: which methods must NOT
+        ride the compiled pipeline.  @serve.batch methods depend on
+        CONCURRENT arrivals on the actor's event loop to accumulate a
+        batch — the pipe's strictly serial step loop would degrade
+        every batch to size 1."""
+        skip = [name for name, m
+                in inspect.getmembers(type(self._user))
+                if getattr(m, "_rtpu_batch_queue_factory", False)]
+        return {"skip_methods": skip}
+
+    def pipeline_step(self, request) -> Any:
+        """One request step on the compiled serve pipeline
+        (serve_compiled_pipeline): the router's handoff writes
+        (method, args, kwargs, model_id) into the graph's input
+        channel; this method — bound into a per-replica compiled DAG
+        and driven by the pinned executor loop — runs it and returns a
+        ("ok", value) / ("err", exception) envelope.  The envelope is
+        load-bearing: a raised exception would kill the executor loop
+        and tear down the whole pipe, so application errors must
+        travel as values."""
+        import asyncio
+        import time
+        from ray_tpu_torch.serve.multiplex import (_current_model_id,
+                                             _set_current_model_id)
+        from ray_tpu_torch.util import profiling
+        method, args, kwargs, model_id = request
+        t0 = time.monotonic()
+        with self._count_lock:
+            self._inflight += 1
+        token = _set_current_model_id(model_id)
+        try:
+            with profiling.span("replica.handle_request",
+                                deployment=self._name, method=method,
+                                compiled=True):
+                out = getattr(self._user, method)(*args,
+                                                  **(kwargs or {}))
+                if inspect.isawaitable(out):
+                    if self._pipe_loop is None:
+                        self._pipe_loop = asyncio.new_event_loop()
+                    out = self._pipe_loop.run_until_complete(out)
+            with self._count_lock:
+                self._lat_window.append(
+                    (time.monotonic(), time.monotonic() - t0))
+            return ("ok", out)
+        except BaseException as e:  # noqa: BLE001
+            return ("err", self._retag_rejection(e))
+        finally:
+            _current_model_id.reset(token)
+            with self._count_lock:
+                self._inflight -= 1
+                self._served += 1
 
     def handle_request_stream(self, method: str, args: tuple,
                               kwargs: dict):

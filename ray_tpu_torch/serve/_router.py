@@ -1,9 +1,12 @@
 """Serve request router: power-of-two-choices replica scheduling, with
 request failover and a per-replica circuit breaker.
 
-Counterpart of `ray_tpu/serve/_router.py`, without the compiled serve
-pipeline (`serve_compiled_pipeline`), which needs task DAGs: with the
-switch on, `serve.run` raises naming them (ROADMAP Queue A, A2c).
+Counterpart of `ray_tpu/serve/_router.py`.  With
+`serve_compiled_pipeline` on, each replica's requests ride a compiled
+DAG of one `pipeline_step` node (`ray_tpu_torch.dag`); a replica whose
+pipe cannot be built, a method that must not ride it (`@serve.batch`)
+and a request the pipe lost to a replica's death take the task path.
+`pipe_stats()` counts both ways.
 
 Analog of the reference's Router (serve/_private/router.py:311) +
 PowerOfTwoChoicesReplicaScheduler
@@ -91,6 +94,22 @@ class Router:
         self._failures: Dict[bytes, int] = {}
         self._sidelined: Dict[bytes, float] = {}
         self._lock = threading.Lock()
+        # Compiled serve pipeline (serve_compiled_pipeline): one
+        # compiled DAG per replica, requests ride its channels instead
+        # of per-call actor tasks.  actor_id -> (CompiledDAG, Lock,
+        # skip_methods).  _pipe_failed negative-caches compile
+        # failures so a replica whose pipe can't build degrades to the
+        # task path without paying probe+compile on every request.
+        self._pipes: Dict[bytes, tuple] = {}
+        self._pipe_failed: Dict[bytes, float] = {}
+        # Pipes of replicas REMOVED from the routing set while their
+        # requests are still in flight (graceful scale-down mask):
+        # torn down from done() once the replica's outstanding count
+        # drains — tearing down under in-flight requests surfaces
+        # "DAG was torn down" to users whose replica is alive and
+        # merely draining.
+        self._retired_pipes: Dict[bytes, tuple] = {}
+        self._pipe_counts = {"pipe": 0, "task": 0}
         self._last_refresh = 0.0
         self._last_probe = 0.0
         self._probe_thread = None
@@ -126,6 +145,21 @@ class Router:
             self._version = info["version"]
             self._last_refresh = time.time()
             live = {r._actor_id for r in self._replicas}
+            dead_pipes = []
+            for k in list(self._pipes):
+                if k in live:
+                    continue
+                ent = self._pipes.pop(k)
+                if self._outstanding.get(k, 0) > 0:
+                    # Replica masked (draining) with requests still in
+                    # flight through its pipe: park it; done() tears
+                    # it down when the last request completes.
+                    self._retired_pipes[k] = ent
+                else:
+                    dead_pipes.append(ent)
+            self._pipe_failed = {k: v for k, v
+                                 in self._pipe_failed.items()
+                                 if k in live}
             out = {r._actor_id: self._outstanding.get(r._actor_id, 0)
                    for r in self._replicas}
             for k, n in self._outstanding.items():
@@ -145,6 +179,8 @@ class Router:
                               if k in live}
             self._sidelined = {k: v for k, v in self._sidelined.items()
                                if k in live}
+        for ent in dead_pipes:
+            self._teardown_pipe_async(ent)
 
     # -- long-poll push (reference: long_poll.py LongPollClient) --------
     def _ensure_poll_thread(self) -> None:
@@ -311,6 +347,7 @@ class Router:
             return choice
 
     def done(self, replica) -> None:
+        ent = None
         with self._lock:
             k = replica._actor_id
             if self._outstanding.get(k, 0) > 0:
@@ -318,8 +355,156 @@ class Router:
             if self._outstanding.get(k, 0) == 0 \
                     and all(r._actor_id != k for r in self._replicas):
                 # A retired (masked/draining) replica just drained its
-                # last in-flight request: drop the bookkeeping.
+                # last in-flight request: drop the bookkeeping and
+                # tear its parked pipe down now that nothing rides it.
                 self._outstanding.pop(k, None)
+                ent = self._retired_pipes.pop(k, None)
+        if ent is not None:
+            self._teardown_pipe_async(ent)
+
+    # -- compiled serve pipeline (serve_compiled_pipeline) --------------
+    @staticmethod
+    def _compiled_enabled() -> bool:
+        from ray_tpu_torch._private.config import config
+        return bool(config.serve_compiled_pipeline)
+
+    def _try_pipe(self, replica):
+        """Get (or compile) the replica's request pipe as
+        (CompiledDAG, Lock, skip_methods); None on any compile failure
+        — the caller degrades to the task path."""
+        import ray_tpu_torch
+        k = replica._actor_id
+        with self._lock:
+            ent = self._pipes.get(k)
+            if ent is None and \
+                    time.time() - self._pipe_failed.get(k, 0.0) < 30.0:
+                return None     # recent compile failure: task path
+        if ent is not None:
+            return ent
+        try:
+            skip = set(ray_tpu_torch.get(replica.pipe_config.remote(),
+                                   timeout=30)["skip_methods"])
+            # Importing ray_tpu_torch.dag activates .bind on actor methods.
+            from ray_tpu_torch.dag import InputNode
+            with InputNode() as inp:
+                out = replica.pipeline_step.bind(inp)
+            dag = out.experimental_compile(capacity=16)
+        except Exception:
+            with self._lock:
+                self._pipe_failed[k] = time.time()
+            return None
+        ent = (dag, threading.Lock(), skip)
+        with self._lock:
+            self._pipe_failed.pop(k, None)
+            cur = self._pipes.get(k)
+            if cur is None and k in self._outstanding:
+                self._pipes[k] = ent
+                return ent
+        # Lost the race (or the replica vanished mid-compile).
+        self._teardown_pipe_async(ent)
+        return cur
+
+    def _count_route(self, piped: bool, moved: bool = False) -> None:
+        """Count a request with the switch on: into the pipe, or down
+        the task path (`moved`: out of the pipe onto the task path)."""
+        with self._lock:
+            if moved:
+                self._pipe_counts["pipe"] -= 1
+            self._pipe_counts["pipe" if piped else "task"] += 1
+
+    def pipe_stats(self) -> Dict[str, int]:
+        """With `serve_compiled_pipeline` on: requests sent through a
+        replica's pipe, and requests sent down the task path instead
+        (a pipe that failed to build, a skipped method, a retry after
+        a replica's death)."""
+        with self._lock:
+            return dict(self._pipe_counts)
+
+    def _drop_pipe(self, actor_id: bytes) -> None:
+        with self._lock:
+            ent = (self._pipes.pop(actor_id, None)
+                   or self._retired_pipes.pop(actor_id, None))
+        if ent is not None:
+            self._teardown_pipe_async(ent)
+
+    @staticmethod
+    def _teardown_pipe_async(ent) -> None:
+        """Teardown waits for the executor loop to exit — never on the
+        request path."""
+        threading.Thread(target=ent[0].teardown, daemon=True,
+                         name="rtpu-serve-pipe-td").start()
+
+    def _watch_pipe(self, relay_ref, dag_ref, replica, method: str,
+                    args: tuple, kwargs: dict, model_id: str,
+                    release=None) -> None:
+        """Compiled-path waiter: read the pipe's ("ok"|"err", value)
+        envelope and bridge it onto the relay.  The graph itself is
+        at-most-once; requests it LOSES on a replica death (envelope
+        neither returned nor salvaged from the out ring) retry once
+        through the ordinary task path on another replica — the same
+        replay window actor max_task_retries accepts.  Either way the
+        pipe is dropped, so later requests compile a fresh one on the
+        controller's replacement replica.  `release` (the admission
+        slot) fires when the request reaches a terminal outcome here,
+        or is FORWARDED to the task-path waiter on failover."""
+        relay = relay_ref.binary()
+
+        def waiter() -> None:
+            from ray_tpu_torch import exceptions as exc
+            _pin = relay_ref     # hold until the bridge lands
+            delegated = False
+            try:
+                try:
+                    # No deadline: one slow request must not tear down
+                    # the SHARED pipe (a TimeoutError here would close
+                    # the channels under up-to-capacity unrelated
+                    # in-flight requests).  Matches the task path's
+                    # indefinite wait; a dead replica still surfaces
+                    # via the loop-death check inside get().
+                    status, value = dag_ref.get()
+                except BaseException as e:  # noqa: BLE001
+                    self.done(replica)
+                    self._drop_pipe(replica._actor_id)
+                    death = isinstance(e, (exc.ActorDiedError,
+                                           exc.WorkerCrashedError,
+                                           exc.ActorUnavailableError))
+                    if death:
+                        self._note_replica_failure(replica, e)
+                        failed = (set()
+                                  if isinstance(
+                                      e, exc.ActorUnavailableError)
+                                  else {replica._actor_id})
+                        nxt = self._pick_for_failover(failed, model_id)
+                        if nxt is not None:
+                            self._count_failover()
+                            self._count_route(False, moved=True)
+                            try:
+                                ref2 = nxt.handle_request.remote(
+                                    method, args, kwargs, model_id)
+                            except Exception:
+                                self.done(nxt)
+                                self._bridge(relay, e, as_error=True)
+                                return
+                            # Hand the second attempt to the ordinary
+                            # waiter (it owns bridge + one more
+                            # failover — and the admission slot).
+                            self._watch(relay_ref, ref2, nxt, method,
+                                        args, kwargs, model_id,
+                                        release)
+                            delegated = True
+                            return
+                    self._bridge(relay, e, as_error=True)
+                    return
+                self.done(replica)
+                if status == "ok":
+                    self._record_success(replica._actor_id)
+                self._bridge(relay, value, as_error=(status != "ok"))
+            finally:
+                if release is not None and not delegated:
+                    release()
+
+        threading.Thread(target=waiter, daemon=True,
+                         name="rtpu-serve-pipe").start()
 
     # -- request assignment + failover ----------------------------------
     def assign(self, method: str, args: tuple, kwargs: dict,
@@ -355,6 +540,32 @@ class Router:
                 relay_ref = ObjectRef(relay, owned=True)
                 replica = self.pick(model_id)
                 self._maybe_chaos_kill(chaos, replica)
+                if self._compiled_enabled():
+                    ent = self._try_pipe(replica)
+                    self._count_route(ent is not None
+                                      and method not in ent[2])
+                    if ent is not None and method not in ent[2]:
+                        dag, plock, _ = ent
+                        dag_ref = None
+                        try:
+                            with plock:
+                                # Router handoff: the request goes
+                                # straight into the graph's input
+                                # channel — no scheduled task on the
+                                # hot path.
+                                dag_ref = dag.execute(
+                                    (method, args, kwargs, model_id))
+                        except BaseException:  # noqa: BLE001
+                            # Pipe broken before the request entered
+                            # the graph: safe to fall through to the
+                            # task path.
+                            self._drop_pipe(replica._actor_id)
+                            self._count_route(False, moved=True)
+                        if dag_ref is not None:
+                            self._watch_pipe(relay_ref, dag_ref,
+                                             replica, method, args,
+                                             kwargs, model_id, release)
+                            return relay_ref, replica
                 ref = replica.handle_request.remote(method, args,
                                                     kwargs, model_id)
         except BaseException:
@@ -585,3 +796,10 @@ class Router:
 
     def close(self) -> None:
         self._closed.set()
+        with self._lock:
+            pipes = (list(self._pipes.values())
+                     + list(self._retired_pipes.values()))
+            self._pipes.clear()
+            self._retired_pipes.clear()
+        for ent in pipes:
+            self._teardown_pipe_async(ent)

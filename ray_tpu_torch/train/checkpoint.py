@@ -90,6 +90,13 @@ def _world() -> Tuple[bool, int]:
     return dist.get_world_size() == 1, dist.get_rank()
 
 
+def _write_atomic(path: str, data: bytes) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 def _detached(tensors: Dict[str, Any]) -> Dict[str, Any]:
     # Views that share storage and carry no autograd history: DCP's
     # in-place load must not trip over parameters that require grad.
@@ -124,18 +131,22 @@ class Checkpoint:
         tensors: Dict[str, Any] = {}
         skeleton = _flatten(tree, "", tensors)
         no_dist, rank = _world()
+        if rank == 0:
+            # Before dcp.save, whose collectives hold every rank until
+            # rank 0 has entered it: a rank that returns from save and
+            # loads at once finds the whole tree file, never a missing
+            # or half-written one.
+            _write_atomic(os.path.join(path, _TREE),
+                          pickle.dumps(skeleton))
+            if metadata:
+                _write_atomic(os.path.join(path, "metadata.json"),
+                              json.dumps(metadata).encode())
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=".*single process")
             dcp.save(_detached(tensors), no_dist=no_dist,
                      storage_writer=dcp.FileSystemWriter(
                          os.path.join(path, _STATE),
                          thread_count=_WRITER_THREADS))
-        if rank == 0:
-            with open(os.path.join(path, _TREE), "wb") as f:
-                pickle.dump(skeleton, f)
-            if metadata:
-                with open(os.path.join(path, "metadata.json"), "w") as f:
-                    json.dump(metadata, f)
         return cls(path)
 
     def load_pytree(self, abstract_tree: Any = None) -> Any:

@@ -187,6 +187,64 @@ def test_compiled_train_step_on_group_mesh(mesh_group, jax_loss, params,
     assert all(n > 0 for _, _, n in got)       # DTensor leaves were saved
 
 
+def test_checkpoint_tree_is_whole_before_any_rank_loads(mesh_group,
+                                                       tmp_path):
+    """Rank 0 writes the tree file a second late: a rank that loads as
+    soon as `save_pytree` returns still finds it whole.  (When rank 0
+    wrote it after DCP's save, the other ranks could open it before it
+    existed and fail, while rank 0 waited for them in DCP's load until
+    the run timed out.)"""
+    def save_then_load(rank, ckpt_dir):
+        import pickle
+        import time
+
+        import torch
+        from ray_tpu_torch.train import checkpoint as ck
+
+        class SlowPickle:
+            def __getattr__(self, name):
+                return getattr(pickle, name)
+
+            @staticmethod
+            def dumps(*a, **kw):
+                time.sleep(1.0)
+                return pickle.dumps(*a, **kw)
+
+        ck.pickle = SlowPickle()
+        try:
+            ck.Checkpoint.save_pytree(
+                ckpt_dir, {"w": torch.arange(4.0), "step": 3},
+                metadata={"by": "rank 0"})
+            got = ck.Checkpoint(ckpt_dir).load_pytree(
+                {"w": torch.zeros(4), "step": 0})
+            meta = ck.Checkpoint(ckpt_dir).metadata()
+        finally:
+            ck.pickle = pickle
+        return got["w"].tolist(), got["step"], meta
+
+    got = mesh_group.run(save_then_load, str(tmp_path / "ckpt"),
+                         timeout=TIMEOUT)
+    assert got == [([0.0, 1.0, 2.0, 3.0], 3, {"by": "rank 0"})] * 4
+
+
+def test_run_timeout_names_each_ranks_stack(mesh_group):
+    """A run that times out raises with what the finished ranks raised
+    and the stacks of the ranks still running."""
+    def rank1_fails(rank):
+        import torch
+        import torch.distributed as dist
+        if rank == 1:
+            raise ValueError("rank 1 gave up")
+        dist.all_reduce(torch.ones(()))     # waits for rank 1 forever
+
+    with pytest.raises(ray_tpu_torch.exceptions.GetTimeoutError) as info:
+        mesh_group.run(rank1_fails, timeout=8.0)
+    text = str(info.value)
+    assert "rank 1 raised" in text and "rank 1 gave up" in text
+    assert "--- rank 0 stacks ---" in text and "all_reduce" in text
+    mesh_group.rebuild()       # the survivors are stuck in the collective
+
+
 def test_resize_in_place(mesh_group):
     """Shrink to 1 host and grow back to 2 on the same placement group;
     grow is bounded by the bundles reserved at construction."""

@@ -69,8 +69,11 @@ def test_every_port_module_imports_with_jax_blocked():
             "ray_tpu_torch.ops.ring_attention"} <= set(mods)
     assert {f"ray_tpu_torch.rllib.{m}" for m in (
         "appo", "checkpoint", "connectors", "convert", "cql", "dqn", "env",
-        "impala", "multi_agent", "offline", "optim", "ppo", "sac")} \
-        <= set(mods)
+        "impala", "multi_agent", "offline", "optim", "ppo", "sac",
+        "workers")} <= set(mods)
+    assert {"ray_tpu_torch.dag", "ray_tpu_torch.workflow",
+            "ray_tpu_torch.experimental.channel",
+            "ray_tpu_torch.experimental.dag_executor"} <= set(mods)
     assert {f"ray_tpu_torch._private.{m}" for m in (
         "node_service", "client", "worker_main", "gcs", "shm_store",
         "serialization", "accelerators")} <= set(mods)

@@ -358,13 +358,23 @@ def _np(tree):
     return optim.tree_map(lambda t: t.numpy(), tree)
 
 
-def test_paths_that_wait_raise_and_name_their_roadmap_item():
-    from ray_tpu_torch.rllib import IMPALAConfig, MultiAgentPPOConfig, \
-        PPOConfig
-    from ray_tpu_torch.rllib.appo import APPOConfig
-    for cfg in (PPOConfig(), IMPALAConfig(), APPOConfig()):
-        with pytest.raises(NotImplementedError, match="A8b"):
+def test_paths_that_wait_raise_and_name_their_roadmap_item(monkeypatch):
+    """Nothing waits on A8b any more: an online algorithm's learner
+    defaults to the card, so on a host without CUDA `build()` raises
+    `resolve_device`'s message before it spawns a worker; the configs'
+    own checks still raise."""
+    from ray_tpu_torch.rllib import (APPOConfig, DQNConfig, IMPALAConfig,
+                                     MultiAgentPPOConfig, PPOConfig,
+                                     SACConfig)
+    import ray_tpu_torch.rllib.workers as wk
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(wk, "spawn", None)     # never reached
+    for cfg in (PPOConfig(), DQNConfig(), SACConfig(), IMPALAConfig(),
+                APPOConfig()):
+        with pytest.raises(RuntimeError, match="CUDA"):
             cfg.build()
+    with pytest.raises(ValueError, match="unknown DQN config option"):
+        DQNConfig().training(no_such_option=1)
     ma = MultiAgentPPOConfig()
     with pytest.raises(ValueError, match="required"):
         ma.build()
@@ -374,7 +384,7 @@ def test_paths_that_wait_raise_and_name_their_roadmap_item():
         ma.build()
     ma.multi_agent(policies={"p": {"obs_size": 4, "num_actions": 2}},
                    policy_mapping={"agent_0": "p"})
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         ma.build()
     for cfg in (CQLConfig(), MARWILConfig()):
         with pytest.raises(ValueError, match="input_path or data"):

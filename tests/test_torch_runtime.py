@@ -424,12 +424,18 @@ def test_session_and_report_dirs_follow_the_temp_dir(monkeypatch):
 
 
 def test_bind_names_its_roadmap_item(torch_rt):
-    @torch_rt.remote
-    def f():
-        return 1
+    """`bind` no longer raises naming A2c: it builds the task-DAG node
+    that `ray_tpu_torch.workflow` runs (tests/test_torch_workflow.py)."""
+    from ray_tpu_torch.workflow import FunctionNode
 
-    with pytest.raises(NotImplementedError, match="A2c"):
-        f.bind()
+    @torch_rt.remote
+    def f(x, y=0):
+        return x + y
+
+    node = f.bind(1, y=2)
+    assert isinstance(node, FunctionNode)
+    assert node.rf is f and node.args == (1,) and node.kwargs == {"y": 2}
+    assert repr(node) == "f.bind(...)"
 
 
 # One runtime per process: init, a 64 MiB put/get and an actor call, then

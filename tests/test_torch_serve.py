@@ -780,19 +780,74 @@ def test_replica_without_a_device_fails_on_a_host_without_a_gpu(runtimes):
         torch_serve.delete("NoDevice")
 
 
-def test_compiled_pipeline_switch_raises_naming_its_item(runtimes,
-                                                         monkeypatch):
-    from ray_tpu_torch._private.config import config
-    monkeypatch.setattr(config, "serve_compiled_pipeline", True)
+def scenario_compiled_pipeline(rt):
+    """serve_compiled_pipeline on: unary calls, an async method and an
+    application error ride the replica's compiled pipe (the pipe stays
+    after the error); a @serve.batch method takes the task path and
+    still batches.  Returns (what both packages must agree on, the
+    port router's pipe and task counts)."""
+    import importlib
+    serve = _serve(rt)
+    config = importlib.import_module(f"{rt.__name__}._private.config").config
+    config.set("serve_compiled_pipeline", True)
+    try:
+        @serve.deployment(num_replicas=1, max_concurrent_queries=32)
+        class Piped:
+            def __init__(self):
+                self.sizes = []
 
-    @torch_serve.deployment
-    class Never:
-        def __call__(self):
-            return 0
+            def __call__(self, x):
+                return x + 1
 
-    with pytest.raises(NotImplementedError, match="A2c"):
-        torch_serve.run(Never)
-    assert "Never" not in torch_serve.status()
+            async def triple(self, x):
+                return x * 3
+
+            def boom(self):
+                raise ValueError("pipe-kaboom")
+
+            @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.05)
+            async def batched(self, xs):
+                self.sizes.append(len(xs))
+                return [x * 10 for x in xs]
+
+            def get_sizes(self):
+                return self.sizes
+
+        h = serve.run(Piped)
+        out = {"one": rt.get(h.remote(1), timeout=TIMEOUT),
+               "many": rt.get([h.remote(i) for i in range(8)],
+                              timeout=TIMEOUT),
+               "async": rt.get(h.method("triple").remote(2),
+                               timeout=TIMEOUT),
+               "batched": rt.get([h.batched.remote(i) for i in range(8)],
+                                 timeout=TIMEOUT)}
+        try:
+            rt.get(h.method("boom").remote(), timeout=TIMEOUT)
+            out["boom"] = "no error"
+        except Exception as e:      # noqa: BLE001
+            out["boom"] = "pipe-kaboom" in str(e)
+        out["after_error"] = rt.get(h.remote(5), timeout=TIMEOUT)
+        out["batch_grouped"] = max(rt.get(h.get_sizes.remote(),
+                                          timeout=TIMEOUT)) > 1
+        counts = (h._get_router().pipe_stats() if rt is ray_tpu_torch
+                  else None)
+        serve.delete("Piped")
+        return out, counts
+    finally:
+        config.set("serve_compiled_pipeline", False)
+
+
+def test_compiled_pipeline_round_trip(runtimes):
+    (jax_out, _), (torch_out, counts) = _side_by_side(
+        scenario_compiled_pipeline)
+    assert torch_out == jax_out
+    assert torch_out == {"one": 2, "many": list(range(1, 9)), "async": 6,
+                         "batched": [10 * i for i in range(8)],
+                         "boom": True, "after_error": 6,
+                         "batch_grouped": True}
+    # one, many, async, boom, after_error and get_sizes through the
+    # pipe; the 8 batched calls down the task path
+    assert counts == {"pipe": 13, "task": 8}
 
 
 def test_serve_workers_import_neither_jax_nor_torch(runtimes):
